@@ -1,0 +1,119 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+All sources under ``aloam_tpu_torch/csrc/`` compile into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds). The library lands in ``aloam_tpu_torch/_build/`` under a name
+keyed on a hash of the sources and flags, so an edited source rebuilds.
+The build runs at first use, never at import: importing the package needs
+no CUDA toolkit, and the CPU paths never build anything.
+
+Every C entry point takes device pointers and a ``cudaStream_t`` and
+returns the ``cudaError_t`` of its launch; :func:`check` turns a non-zero
+code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# C signatures: (name, argument types); every function returns int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "aloam_seg_scan": (_P, _P, _P, _I, _I, _I, _P),
+    "aloam_select_rings": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                           _P),
+    "aloam_odom_window": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "aloam_lm_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: building the CUDA kernels needs "
+                           "the CUDA toolkit (on PATH or /usr/local/cuda)")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libaloam_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources()]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.aloam_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.aloam_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = library().aloam_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def require_cuda(name: str, *tensors, dtypes) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    with the matching dtype."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes, strict=True):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: expected CUDA tensors on {dev}, got "
+                             f"{t.device}")
+        if t.dtype != dt:
+            raise ValueError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def launch(c_name: str, device: torch.device, *args) -> None:
+    """Call a kernel's C entry point on ``device``'s current stream (the
+    stream is appended as the last argument) and raise on a launch
+    error."""
+    fn = getattr(library(), c_name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, c_name)

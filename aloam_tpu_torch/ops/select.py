@@ -1,0 +1,82 @@
+"""Greedy sharp/flat feature selection (kernel module).
+
+Port of ``aloam_tpu/ops/pallas_select.py:select_rings``. The CUDA kernel
+is ``csrc/select.cu`` (one block per ring row, the 144 sequential picks
+in shared memory). The plain version beside it runs the same walk on all
+rows at once: each pick is one masked extremum over the (R', C) grid,
+ties to the lowest index, then the closed-form gap-stopped NMS mark of
+``aloam_tpu/frontend/features._select_rings``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from aloam_tpu_torch.ops import _build
+
+launches = 0  # kernel launches since the last reset
+
+
+def select_rings_plain(curv, bcum, spep, n_regions: int, max_sharp: int,
+                       max_less_sharp: int, max_flat: int, nms_window: int,
+                       curv_thr: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`select_rings`."""
+    r, c = curv.shape
+    idx = torch.arange(c, device=curv.device)[None, :]
+    picked = torch.zeros((r, c), dtype=torch.bool, device=curv.device)
+    label = torch.zeros((r, c), dtype=torch.int32, device=curv.device)
+    corner_ok = curv > curv_thr
+    flat_ok = curv < curv_thr
+
+    def pick(window, want_max, thr_mask, lbl, mark_nbrs):
+        nonlocal picked, label
+        elig = window & ~picked & thr_mask
+        fill = float("-inf") if want_max else float("inf")
+        score = torch.where(elig, curv, fill)
+        best = score.amax(dim=1) if want_max else score.amin(dim=1)
+        ok = torch.isfinite(best)[:, None]
+        cand = torch.where(score == best[:, None], idx, c).amin(dim=1)
+        cand = cand.clamp_max(c - 1)[:, None]
+        at_cand = ok & (idx == cand)
+        label = torch.where(at_cand, lbl, label)
+        if mark_nbrs:
+            b_cand = bcum.gather(1, cand)
+            mark = ((idx - cand).abs() <= nms_window) & (bcum == b_cand) & ok
+            picked = picked | mark
+
+    for j in range(n_regions):
+        window = (idx >= spep[:, j:j + 1]) & (idx <= spep[:, n_regions + j:
+                                                          n_regions + j + 1])
+        for t in range(max_less_sharp):
+            pick(window, True, corner_ok, 2 if t < max_sharp else 1, True)
+        for t in range(max_flat):
+            # the last flat pick labels but suppresses nothing
+            # (scanRegistration.cpp:358-362)
+            pick(window, False, flat_ok, -1, t < max_flat - 1)
+    return label
+
+
+def select_rings(curv: torch.Tensor, bcum: torch.Tensor, spep: torch.Tensor,
+                 n_regions: int, max_sharp: int, max_less_sharp: int,
+                 max_flat: int, nms_window: int,
+                 curv_thr: float) -> torch.Tensor:
+    """curv (R', C) f32; bcum (R', C) int32 bad-gap prefix counts; spep
+    (R', 2*n_regions) f32 [sp... | ep...] (ep = -1 disables a region).
+    Returns label (R', C) int32: 2 sharp, 1 less-sharp, -1 flat, 0 other.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    args = (n_regions, max_sharp, max_less_sharp, max_flat, nms_window)
+    if all(t.device.type == "cpu" for t in (curv, bcum, spep)):
+        return select_rings_plain(curv, bcum, spep, *args, curv_thr)
+    _build.require_cuda("select_rings", curv, bcum, spep,
+                        dtypes=(torch.float32, torch.int32, torch.float32))
+    r, c = curv.shape
+    if tuple(bcum.shape) != (r, c) or tuple(spep.shape) != (r, 2 * n_regions):
+        raise ValueError(f"select_rings: curv {tuple(curv.shape)}, bcum "
+                         f"{tuple(bcum.shape)}, spep {tuple(spep.shape)}")
+    label = torch.empty((r, c), dtype=torch.int32, device=curv.device)
+    _build.launch("aloam_select_rings", curv.device, curv.data_ptr(),
+                  bcum.data_ptr(), spep.data_ptr(), label.data_ptr(), r, c,
+                  *args, float(curv_thr))
+    global launches
+    launches += 1
+    return label

@@ -1,0 +1,399 @@
+"""The port's kernel modules (aloam_tpu_torch/ops) against the JAX package.
+
+Each port kernel has a CUDA version (run and checked on the card by
+chip_smoke.py) and a plain PyTorch version, which is what a CPU tensor
+gets. These tests feed the same numpy inputs, made from a seed, to the
+plain version and to the JAX side: the Pallas kernel in interpret mode and
+its XLA twin, as tests/test_batched_kernels.py and tests/test_pallas_lm.py
+run them. Each test states its tolerance.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aloam_tpu import geometry as jgeo
+from aloam_tpu import solver as jsolver
+from aloam_tpu.config import AloamConfig
+from aloam_tpu.frontend import features as jfeat
+from aloam_tpu.frontend.voxel import _voxel_core as j_voxel_core
+from aloam_tpu.neighbors import odom_window_mins_b as j_window_mins_b
+from aloam_tpu.ops import pallas_lm
+from aloam_tpu.ops.pallas_odom import window_mins as j_window_mins
+from aloam_tpu.ops.pallas_select import select_rings as j_select_rings
+from aloam_tpu.ops.pallas_voxel import segmented_prefix_sums as j_seg_sums
+from aloam_tpu.utils.batch import bgather as j_bgather
+from aloam_tpu_torch import geometry as geo
+from aloam_tpu_torch import solver
+from aloam_tpu_torch.frontend import features
+from aloam_tpu_torch.frontend.voxel import _voxel_core
+from aloam_tpu_torch.neighbors import odom_window_mins_b
+from aloam_tpu_torch.ops import lm as lm_op
+from aloam_tpu_torch.ops import odom as odom_op
+from aloam_tpu_torch.ops import select as select_op
+from aloam_tpu_torch.ops import voxel as seg_op
+from aloam_tpu_torch.utils.batch import bgather
+
+torch.set_num_threads(1)
+
+CFG = AloamConfig(scan_lines=16, minimum_range=0.3, n_raw=4096,
+                  ring_cap=256, less_flat_cap=2048)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+# --- select_rings ----------------------------------------------------------
+
+def _ring_rows(rng, r=24, c=160):
+    """Ring-like rows: arcs with occasional range jumps, so the bad-gap
+    prefix stops some NMS windows; degenerate rings (empty, too small,
+    minimal, full) lead."""
+    th = np.cumsum(rng.uniform(0.001, 0.01, size=(r, c)), axis=1)
+    rad = 5.0 + np.where(rng.uniform(size=(r, c)) < 0.07,
+                         rng.uniform(1, 4, size=(r, c)), 0.0)
+    pts = np.stack([rad * np.cos(th), rad * np.sin(th),
+                    0.05 * rng.standard_normal((r, c))], -1).astype(np.float32)
+    curv = rng.uniform(0, 0.4, size=(r, c)).astype(np.float32)
+    curv[:, 40:44] = 0.3            # exact ties: lowest index must win
+    cnt = rng.integers(0, c, size=(r,)).astype(np.int32)
+    cnt[:4] = [0, 5, 11, c]
+    return pts, curv, cnt
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_select_rings_matches_jax(seed):
+    """Labels exact against the JAX XLA walk (features._select_rings) and
+    the Pallas kernel in interpret mode."""
+    pts, curv, cnt = _ring_rows(np.random.default_rng(seed))
+    label_t, in_t = features._select_labels(_t(pts), _t(curv), _t(cnt), CFG)
+
+    label_x, _, _ = jfeat._select_rings(jnp.asarray(pts), jnp.asarray(curv),
+                                        jnp.asarray(cnt), CFG)
+    np.testing.assert_array_equal(label_t.numpy(),
+                                  np.asarray(label_x, np.int32))
+
+    # the kernel's inputs as the JAX package builds them
+    sp, ep, size, ok = jax.vmap(
+        lambda n: jfeat._region_bounds(n, CFG.n_regions))(jnp.asarray(cnt))
+    ep_eff = jnp.where((size > 0) & ok[:, None], ep, -1)
+    spep = jnp.concatenate([sp, ep_eff], axis=1).astype(jnp.float32)
+    d = pts[:, 1:] - pts[:, :-1]
+    bad = (np.sum(d * d, axis=-1) > CFG.nms_gap_sq).astype(np.float32)
+    bcum = np.concatenate([np.zeros((pts.shape[0], 1), np.float32),
+                           np.cumsum(bad, axis=1)], axis=1)
+    label_p = j_select_rings(jnp.asarray(curv), jnp.asarray(bcum), spep,
+                             CFG.n_regions, CFG.max_sharp,
+                             CFG.max_less_sharp, CFG.max_flat,
+                             CFG.nms_window, CFG.curvature_threshold, tr=8,
+                             interpret=True)
+    np.testing.assert_array_equal(label_t.numpy(), np.asarray(label_p))
+
+    args, in_any = features._select_args(_t(pts), _t(curv), _t(cnt), CFG)
+    np.testing.assert_array_equal(args[1].numpy(), bcum.astype(np.int32))
+    np.testing.assert_array_equal(args[2].numpy(), np.asarray(spep))
+    assert (label_t.numpy() == 2).sum() > 0 and (label_t.numpy() == -1).any()
+    assert in_t.dtype == torch.bool
+
+
+# --- segmented_prefix_sums -------------------------------------------------
+
+def test_segmented_prefix_sums_matches_jax(rng):
+    """Sums atol 1e-5 against the Pallas kernel (interpret mode, 128-wide
+    chunks so the 700-long rows cross chunk boundaries with an open
+    segment) and a float64 loop; the count channel exact."""
+    heads = rng.uniform(size=(4, 700)) < 0.1
+    heads[:, 0] = True
+    heads[1, 100:400] = False       # one segment spans several chunks
+    chan = rng.uniform(-2, 2, size=(2, 4, 700)).astype(np.float32)
+    chan[1] = 1.0                   # a count channel
+    got = seg_op.segmented_prefix_sums(_t(chan), _t(heads)).numpy()
+
+    pal = np.stack([np.asarray(o) for o in j_seg_sums(
+        (jnp.asarray(chan[0]), jnp.asarray(chan[1])), jnp.asarray(heads),
+        chunk=128, interpret=True)])
+    ref = np.zeros(chan.shape, np.float64)
+    for r in range(4):
+        acc = np.zeros(2)
+        for j in range(700):
+            v = chan[:, r, j].astype(np.float64)
+            acc = v if heads[r, j] else acc + v
+            ref[:, r, j] = acc
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, pal, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got[1], pal[1])
+    np.testing.assert_array_equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("kernel_interpret", [False, True])
+def test_voxel_core_matches_jax(rng, kernel_interpret):
+    """Through the whole downsample (sort, scan, compaction) against JAX's
+    _voxel_core with its XLA scan and with the Pallas scan in interpret
+    mode: means atol 2e-5, masks and drop counts exact."""
+    r, n, k = 12, 640, 4
+    vals = rng.uniform(-20, 20, size=(r, n, k)).astype(np.float32)
+    mask = rng.uniform(size=(r, n)) > 0.15
+    mask[0] = False                 # an empty row
+    out_t = _voxel_core(_t(vals), _t(mask), 0.7, 256)
+    out_j = j_voxel_core(jnp.asarray(vals), jnp.asarray(mask), 0.7, 256,
+                         force_kernel_interpret=kernel_interpret)
+    np.testing.assert_allclose(out_t[0].numpy(), np.asarray(out_j[0]),
+                               atol=2e-5, rtol=0)
+    np.testing.assert_array_equal(out_t[1].numpy(), np.asarray(out_j[1]))
+    np.testing.assert_array_equal(out_t[2].numpy(), np.asarray(out_j[2]))
+    assert out_t[2].numpy().max() > 0      # out_cap 256 overflows here
+
+
+# --- window_mins -----------------------------------------------------------
+
+def _window_inputs(rng, bsz=2, q=96, m=700):
+    sel = rng.uniform(-10, 10, size=(bsz, q, 3)).astype(np.float32)
+    ref = rng.uniform(-10, 10, size=(bsz, m, 3)).astype(np.float32)
+    ring = np.sort(rng.integers(0, 16, size=(bsz, m)), axis=1)
+    mask = rng.uniform(size=(bsz, m)) > 0.1
+    return sel, ref, ring.astype(np.int32), mask
+
+
+@pytest.mark.parametrize("want_same", [True, False])
+def test_window_mins_matches_jax(rng, want_same):
+    """Against the JAX XLA scan (odom_window_mins_b) and the Pallas kernel
+    in interpret mode: d2 within rtol/atol 1e-4 (the JAX side expands
+    q² − 2q·r + r², the port computes (q − r)² directly), indices exact
+    wherever a candidate exists."""
+    sel, ref, ring, mask = _window_inputs(rng)
+    got = odom_window_mins_b(_t(sel), _t(ref), _t(mask), _t(ring), 2,
+                             want_same_ring=want_same)
+    xla = j_window_mins_b(jnp.asarray(sel), jnp.asarray(ref),
+                          jnp.asarray(mask), jnp.asarray(ring), 2,
+                          want_same_ring=want_same, chunk=256)
+    assert len(got) == len(xla) == (6 if want_same else 4)
+
+    center = sel.mean(axis=1, keepdims=True)
+    ref_p = np.concatenate(
+        [np.where(mask[:, None, :], np.moveaxis(ref - center, 1, 2), 1e9),
+         np.where(mask, ring, 1e9)[:, None].astype(np.float32)],
+        axis=1).astype(np.float32)
+    pal = j_window_mins(jnp.asarray(sel - center), jnp.asarray(ref_p), 2.0,
+                        tq=32, m_chunk=256, interpret=True)
+    for other in (xla, pal):
+        for j in range(0, len(got), 2):
+            d_t, d_o = got[j].numpy(), np.asarray(other[j])
+            has = d_o < 1e17
+            np.testing.assert_allclose(d_t[has], d_o[has], rtol=1e-4,
+                                       atol=1e-4)
+            np.testing.assert_array_equal(got[j + 1].numpy()[has],
+                                          np.asarray(other[j + 1])[has])
+            assert has.mean() > 0.9
+
+
+def test_window_mins_poisoned_cloud():
+    """An all-invalid reference: every d2 is beyond the 25 m² gates and
+    the windows stay out of every real ring."""
+    rng = np.random.default_rng(3)
+    sel, ref, ring, _ = _window_inputs(rng, bsz=1, q=16, m=40)
+    got = odom_window_mins_b(_t(sel), _t(ref), torch.zeros(1, 40, dtype=bool),
+                             _t(ring), 2, want_same_ring=True)
+    assert (got[0].numpy() > 1e17).all()
+    assert (got[2].numpy() == np.inf).all()
+
+
+# --- lm_fused ----------------------------------------------------------------
+
+def _factors(rng, b, ne, npl, frac_valid=0.7, offset=0.0, poison=False,
+             aligned_normals=False):
+    """Edge and plane factors near a recoverable pose (the generator of
+    tests/test_pallas_lm.py), as numpy arrays."""
+    e_p = rng.normal(scale=8.0, size=(b, ne, 3)).astype(np.float32)
+    e_a = e_p + rng.normal(scale=0.05, size=(b, ne, 3)).astype(np.float32)
+    dirs = rng.normal(size=(b, ne, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    e_b = e_a + 0.4 * dirs
+    e_m = rng.random((b, ne)) < frac_valid
+    p_p = rng.normal(scale=8.0, size=(b, npl, 3)).astype(np.float32)
+    if aligned_normals:
+        n = np.tile(np.array([0.0, 0.0, 1.0], np.float32), (b, npl, 1))
+        n = n + rng.normal(scale=0.02, size=(b, npl, 3)).astype(np.float32)
+    else:
+        n = rng.normal(size=(b, npl, 3)).astype(np.float32)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    d = (-np.sum(n * p_p, axis=-1) + offset
+         + rng.normal(scale=0.02, size=(b, npl))).astype(np.float32)
+    p_m = rng.random((b, npl)) < frac_valid
+    if poison:
+        e_p[~e_m] = np.inf
+        p_p[~p_m] = np.nan
+    return (e_p, e_a, e_b, e_m), (p_p, n, d, p_m)
+
+
+def _lm_case(case, rng):
+    b = 3 if case == "match" else 2
+    if case == "match":
+        e, p = _factors(rng, b, 256, 384, poison=True)
+        q0 = np.tile([[0.999, 0.02, -0.03, 0.01]], (b, 1)).astype(np.float32)
+        q0 /= np.linalg.norm(q0, axis=1, keepdims=True)
+        t0 = rng.normal(scale=0.1, size=(b, 3)).astype(np.float32)
+    elif case == "clamp":
+        # aligned planes offset by 20 m and no edges: the first translation
+        # update exceeds the 5 m clamp
+        e, p = _factors(rng, b, 128, 256, offset=20.0, aligned_normals=True)
+        e = (*e[:3], np.zeros_like(e[3]))
+        q0 = np.tile([[1.0, 0, 0, 0]], (b, 1)).astype(np.float32)
+        t0 = np.zeros((b, 3), np.float32)
+    else:  # empty problem: the pose comes back unchanged
+        e, p = _factors(rng, b, 128, 128, frac_valid=0.0)
+        q0 = rng.normal(size=(b, 4)).astype(np.float32)
+        q0 /= np.linalg.norm(q0, axis=1, keepdims=True)
+        t0 = rng.normal(size=(b, 3)).astype(np.float32)
+    return e, p, q0, t0
+
+
+@pytest.mark.parametrize("case", ["match", "clamp", "empty"])
+def test_lm_matches_jax(case):
+    """solver.lm_solve_b (the plain version of the one-launch solve) against
+    the Pallas kernel in interpret mode and JAX's vmapped lm_solve: q atol
+    2e-5, t atol 2e-4 (2e-3 when the clamp engages), cost0 rtol 2e-4, cost
+    rtol 2e-3; n_factors, clamped and nonfinite exact."""
+    rng = np.random.default_rng(7)
+    e, p, q0, t0 = _lm_case(case, rng)
+    edges = solver.EdgeFactors(*map(_t, e))
+    planes = solver.PlaneFactors(*map(_t, p))
+    q, t, st = solver.lm_solve_b(edges, planes, _t(q0), _t(t0), 4, 0.1)
+
+    je = jsolver.EdgeFactors(*map(jnp.asarray, e))
+    jp = jsolver.PlaneFactors(*map(jnp.asarray, p))
+    pose = jnp.concatenate([q0, t0, np.zeros((len(q0), 1), np.float32)], 1)
+    pal = np.asarray(pallas_lm.lm_fused(
+        pallas_lm.pack_edge_channels(je), pallas_lm.pack_plane_channels(jp),
+        pose, 4, 0.1, interpret=True))
+    q_r, t_r, st_r = jax.vmap(lambda a, b_, qq, tt: jsolver.lm_solve(
+        (a, b_), qq, tt, 4, 0.1))(je, jp, jnp.asarray(q0), jnp.asarray(t0))
+    t_tol = 2e-3 if case == "clamp" else 2e-4
+    for q_o, t_o, c0, c, nf, cl, nn in (
+            (pal[:, 0:4], pal[:, 4:7], pal[:, 7], pal[:, 8], pal[:, 9],
+             pal[:, 10], pal[:, 11]),
+            (q_r, t_r, st_r.cost0, st_r.cost, st_r.n_factors, st_r.clamped,
+             st_r.nonfinite)):
+        np.testing.assert_allclose(q.numpy(), np.asarray(q_o), atol=2e-5,
+                                   rtol=0)
+        np.testing.assert_allclose(t.numpy(), np.asarray(t_o), atol=t_tol,
+                                   rtol=0)
+        np.testing.assert_allclose(st.cost0.numpy(), np.asarray(c0),
+                                   rtol=2e-4)
+        np.testing.assert_allclose(st.cost.numpy(), np.asarray(c), rtol=2e-3)
+        for a_, b_ in ((st.n_factors, nf), (st.clamped, cl),
+                       (st.nonfinite, nn)):
+            np.testing.assert_array_equal(a_.numpy(),
+                                          np.asarray(b_).astype(np.int32))
+    if case == "clamp":
+        assert (st.clamped.numpy() >= 1).all()
+    if case == "empty":
+        np.testing.assert_allclose(q.numpy(), q0, atol=1e-6)
+        np.testing.assert_allclose(t.numpy(), t0, atol=1e-6)
+        assert (st.n_factors.numpy() == 0).all()
+
+
+def test_lm_any_factor_count(rng):
+    """Factor caps need not be multiples of 128 (a TPU layout rule the port
+    drops): 100 edges and 77 planes solve like the padded 128 / 128."""
+    e, p = _factors(rng, 2, 100, 77)
+    q0 = np.tile([[1.0, 0, 0, 0]], (2, 1)).astype(np.float32)
+    t0 = np.zeros((2, 3), np.float32)
+    pad = [lambda x, k=k: np.concatenate(
+        [x, np.zeros((2, k) + x.shape[2:], x.dtype)], 1)
+        for k in (28, 51)]
+    q, t, st = solver.lm_solve_b(solver.EdgeFactors(*map(_t, e)),
+                                 solver.PlaneFactors(*map(_t, p)),
+                                 _t(q0), _t(t0), 4, 0.1)
+    q2, t2, st2 = solver.lm_solve_b(
+        solver.EdgeFactors(*(_t(pad[0](x)) for x in e)),
+        solver.PlaneFactors(*(_t(pad[1](x)) for x in p)), _t(q0), _t(t0),
+        4, 0.1)
+    np.testing.assert_allclose(q.numpy(), q2.numpy(), atol=1e-6)
+    np.testing.assert_allclose(t.numpy(), t2.numpy(), atol=1e-5)
+    np.testing.assert_array_equal(st.n_factors.numpy(), st2.n_factors.numpy())
+
+
+# --- primitives and the wrappers' dispatch ----------------------------------
+
+def test_geometry_matches_jax(rng):
+    """qmul, qrot, qrot_inv, exp_so3, retract and compose: atol 1e-6."""
+    q = rng.normal(size=(5, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    q2 = np.roll(q, 1, axis=0)
+    v = rng.normal(scale=10, size=(5, 3)).astype(np.float32)
+    phi = np.concatenate([rng.normal(scale=0.3, size=(4, 3)),
+                          np.full((1, 3), 1e-6)]).astype(np.float32)
+    pairs = [
+        (geo.qmul(_t(q), _t(q2)), jgeo.qmul(q, q2)),
+        (geo.qrot(_t(q), _t(v)), jgeo.qrot(q, v)),
+        (geo.qrot_inv(_t(q), _t(v)), jgeo.qrot_inv(q, v)),
+        (geo.exp_so3(_t(phi)), jgeo.exp_so3(phi)),
+        (geo.retract(_t(q), _t(phi)), jgeo.retract(q, phi)),
+        (geo.compose(_t(q), _t(v), _t(q2), _t(v))[1],
+         jgeo.compose(q, v, q2, v)[1]),
+    ]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-6)
+
+
+def test_bgather_matches_jax(rng):
+    x = rng.normal(size=(3, 50, 4)).astype(np.float32)
+    idx = rng.integers(0, 50, size=(3, 7, 2)).astype(np.int32)
+    np.testing.assert_array_equal(bgather(_t(x), _t(idx)).numpy(),
+                                  np.asarray(j_bgather(x, idx)))
+
+
+def test_wrappers_refuse_non_cuda_devices():
+    """A wrapper runs the plain version only for CPU tensors; any other
+    device must be a CUDA tensor for the kernel, or it raises (no silent
+    fallback). The meta device stands in for a non-CPU, non-CUDA one."""
+    meta = dict(device="meta")
+    with pytest.raises(ValueError):
+        seg_op.segmented_prefix_sums(torch.empty(2, 3, 8, **meta),
+                                     torch.empty(3, 8, dtype=bool, **meta))
+    with pytest.raises(ValueError):
+        select_op.select_rings(torch.empty(4, 8, **meta),
+                               torch.empty(4, 8, dtype=torch.int32, **meta),
+                               torch.empty(4, 12, **meta), 6, 2, 20, 4, 5,
+                               0.1)
+    with pytest.raises(ValueError):
+        odom_op.window_mins(torch.empty(1, 4, 3, **meta),
+                            torch.empty(1, 4, 9, **meta), 2.0, True)
+    with pytest.raises(ValueError):
+        lm_op.lm_fused(torch.empty(1, 10, 8, **meta),
+                       torch.empty(1, 8, 8, **meta),
+                       torch.empty(1, 8, **meta), 4, 0.1)
+    assert seg_op.launches == select_op.launches == 0
+    assert odom_op.launches == lm_op.launches == 0
+
+
+def test_build_key_follows_sources(tmp_path, monkeypatch):
+    """The kernel library is keyed on the CUDA sources: an edited source
+    gets a new library name (so it rebuilds), and building without nvcc
+    fails with a clear error instead of falling back."""
+    import shutil
+
+    from aloam_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    names = [s.name for s in _build.sources()]
+    assert names == sorted(["errors.cu", "lm.cu", "odom_window.cu",
+                            "seg_scan.cu", "select.cu"])
+    before = _build.library_path()
+    assert before == _build.library_path()
+    with open(csrc / "lm.cu", "a") as fh:
+        fh.write("\n// edited\n")
+    assert _build.library_path() != before
+
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert not (tmp_path / "_build").exists()
