@@ -11,8 +11,9 @@ under ``csrc/``, built for ``sm_90a`` at first use (``ops/_build.py``).
 Each kernel's wrapper launches it for CUDA tensors and runs the plain
 PyTorch version of the same function for CPU tensors.
 
-Ported so far: scan registration, feature extraction and scan-to-scan
-odometry (``pipeline.front_step_b``). Mapping is not ported yet.
+Ported so far: the whole batched step (``pipeline.step_b``): scan
+registration, feature extraction, scan-to-scan odometry and scan-to-map
+mapping on the persistent voxel-hash map.
 """
 
 from aloam_tpu.config import AloamConfig, PRESETS  # noqa: F401

@@ -85,6 +85,15 @@ def _voxel_core(values: torch.Tensor, mask: torch.Tensor, leaf: float,
     return means, out_mask, (n_seg - out_cap).clamp_min(0)
 
 
+def voxel_downsample_masked_b(values: torch.Tensor, mask: torch.Tensor,
+                              leaf: float, out_cap: int):
+    """Downsample B masked clouds (the mapping input stacks,
+    laserMapping.cpp:542-550): values (B, N, K) with xyz leading (every
+    column is averaged), mask (B, N). Returns (out (B, out_cap, K),
+    out_mask (B, out_cap), n_dropped (B,))."""
+    return _voxel_core(values, mask, leaf, out_cap)
+
+
 def voxel_downsample_rings(xyz: torch.Tensor, intensity: torch.Tensor,
                            mask: torch.Tensor, leaf: float):
     """Per-ring voxel downsample (scanRegistration.cpp:401-407) over the

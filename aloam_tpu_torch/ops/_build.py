@@ -2,8 +2,12 @@
 
 All sources under ``aloam_tpu_torch/csrc/`` compile into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library lands in ``aloam_tpu_torch/_build/`` under a name
-keyed on a hash of the sources and flags, so an edited source rebuilds.
+seconds): one ``nvcc -c`` per source, all started together, then one
+link. The library lands in ``aloam_tpu_torch/_build/`` under a name keyed
+on a hash of the sources and flags, so an edited source rebuilds.
+``-fmad=false`` keeps every multiply and add rounded on its own, as the
+kernels' plain PyTorch versions round them, so a kernel and its plain
+version can agree bit for bit.
 The build runs at first use, never at import: importing the package needs
 no CUDA toolkit, and the CPU paths never build anything.
 
@@ -27,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 # C signatures: (name, argument types); every function returns int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,6 +41,9 @@ SIGNATURES = {
                            _P),
     "aloam_odom_window": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "aloam_lm_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "aloam_assoc_cell": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                         _F, _P),
+    "aloam_merge_tiles": (_P,) * 17 + (_I, _I, _I, _I, _F, _F, _P),
 }
 
 
@@ -67,14 +74,37 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources(), objs)]
+    procs = []
+    try:
+        for cmd in jobs:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
+        for cmd, proc in zip(jobs, procs):
+            _, err = proc.communicate()
+            _check(cmd, proc.returncode, err)
+        tmp = out.with_name(f"{tag}.tmp")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _check(link, proc.returncode, proc.stderr)
+        os.replace(tmp, out)  # atomic: a loader never sees half a file
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
+
+
+def _check(cmd: list[str], returncode: int, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{stderr}")
 
 
 @functools.cache

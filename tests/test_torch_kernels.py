@@ -30,6 +30,8 @@ from aloam_tpu_torch import solver
 from aloam_tpu_torch.frontend import features
 from aloam_tpu_torch.frontend.voxel import _voxel_core
 from aloam_tpu_torch.neighbors import odom_window_mins_b
+from aloam_tpu_torch.ops import assoc as assoc_op
+from aloam_tpu_torch.ops import insert as insert_op
 from aloam_tpu_torch.ops import lm as lm_op
 from aloam_tpu_torch.ops import odom as odom_op
 from aloam_tpu_torch.ops import select as select_op
@@ -367,8 +369,21 @@ def test_wrappers_refuse_non_cuda_devices():
         lm_op.lm_fused(torch.empty(1, 10, 8, **meta),
                        torch.empty(1, 8, 8, **meta),
                        torch.empty(1, 8, **meta), 4, 0.1)
+    with pytest.raises(ValueError):
+        assoc_op.assoc_cell(torch.empty(300, 768, **meta),
+                            torch.empty(1, dtype=torch.int32, **meta),
+                            torch.empty(256, 8, **meta), "surf", 1.0)
+    i32 = dict(dtype=torch.int32, **meta)
+    with pytest.raises(ValueError):
+        insert_op.merge_tiles(
+            torch.empty(1, 4, 96, **meta), torch.empty(1, 4, 32, **meta),
+            torch.empty(1, 4, 96, **i32), torch.empty(1, 4, 32, **i32),
+            *(torch.empty(1, 4, 16, **meta) for _ in range(4)),
+            torch.empty(1, 4, 16, **i32), torch.empty(1, 4, **i32),
+            torch.empty(1, 3, **i32), torch.empty(3, **i32), 2.0, 0.4)
     assert seg_op.launches == select_op.launches == 0
     assert odom_op.launches == lm_op.launches == 0
+    assert assoc_op.launches == insert_op.launches == 0
 
 
 def test_build_key_follows_sources(tmp_path, monkeypatch):
@@ -384,8 +399,8 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     names = [s.name for s in _build.sources()]
-    assert names == sorted(["errors.cu", "lm.cu", "odom_window.cu",
-                            "seg_scan.cu", "select.cu"])
+    assert names == sorted(["assoc.cu", "errors.cu", "insert.cu", "lm.cu",
+                            "odom_window.cu", "seg_scan.cu", "select.cu"])
     before = _build.library_path()
     assert before == _build.library_path()
     with open(csrc / "lm.cu", "a") as fh:
@@ -397,3 +412,51 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert not (tmp_path / "_build").exists()
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """build() starts one compile per source, then links the objects into
+    the keyed library and removes them; a failing compile raises with the
+    compiler's message and leaves no library and no objects. A stand-in
+    nvcc (a Python script) records what it was asked to do."""
+    import shutil
+    import stat
+    import sys
+
+    from aloam_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    build_dir = tmp_path / "_build"
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f"""#!{sys.executable}
+import sys
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+with open({str(log)!r}, "a") as fh:
+    fh.write(("link " if "-shared" in args else "compile ") + out + "\\n")
+if "-c" in args and "#error" in open(args[-1]).read():
+    sys.stderr.write("broken source " + args[-1])
+    sys.exit(2)
+open(out, "w").write("built")
+""")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build_dir)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+
+    lib = _build.build()
+    assert lib == _build.library_path() and lib.read_text() == "built"
+    calls = log.read_text().split("\n")[:-1]
+    n_src = len(_build.sources())
+    assert [c.split()[0] for c in calls] == ["compile"] * n_src + ["link"]
+    assert sorted(p.name for p in build_dir.iterdir()) == [lib.name]
+    assert _build.build() == lib               # keyed: no second build
+    assert len(log.read_text().split("\n")[:-1]) == n_src + 1
+
+    with open(csrc / "insert.cu", "a") as fh:
+        fh.write("\n#error broken\n")
+    with pytest.raises(RuntimeError, match="broken source .*insert.cu"):
+        _build.build()
+    assert sorted(p.name for p in build_dir.iterdir()) == [lib.name]

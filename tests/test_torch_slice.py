@@ -209,7 +209,8 @@ def test_front_step_b_matches_jax_chain(scene, jax_fns):
 
 def test_port_runs_without_jax():
     """The card's machine has no JAX: the port must import and run one
-    front step with ``jax`` unimportable."""
+    front step and one whole step (mapping included) with ``jax``
+    unimportable."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -228,6 +229,10 @@ def test_port_runs_without_jax():
                                         torch.from_numpy(mask)[None], cfg)
         assert out.q_odom.shape == (1, 4)
         assert out.metrics["n_sharp"].item() > 0
+        st, out = pipeline.step_b(st, torch.from_numpy(xyz)[None],
+                                  torch.from_numpy(mask)[None], cfg)
+        assert out.q_map.shape == (1, 4) and st.frame == 2
+        assert out.metrics.shape == (1, len(pipeline.METRIC_NAMES))
         assert sys.modules["jax"] is None
         print("ok")
     """)
