@@ -25,17 +25,18 @@
 // order (about 8 per cell), so most rows come from L2. Design: one warp
 // per query. Each lane holds up to 16 candidates' d2 in registers; each
 // select pass is a lane-local scan plus a 5-step shuffle (value, index)
-// argmin. On the TPU the row pick was a one-hot MXU matmul over a DMA'd
+// argmin, shared with knn.cu (knn_select.cuh). On the TPU the row pick was a one-hot MXU matmul over a DMA'd
 // cell window; here it is an indexed load. Lane 0 runs the fit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "knn_select.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxPerLane = 16;  // 8 * bw / 32 candidates per lane, bw <= 64
-constexpr unsigned kFull = 0xffffffffu;
 // constants as torch rounds the Python floats of the plain version
 constexpr float kEps = static_cast<float>(1e-12);  // linalg3._EPS
 constexpr float kReg = static_cast<float>(1e-9);   // solve3's reg
@@ -183,57 +184,16 @@ __global__ void assoc_cell_kernel(const float* __restrict__ cand,
   const long long row = c0 + local;
   const bool poison = q[3] > 0.f || local + rem >= win || row < 0
                       || row >= n_rows;
-  const int n_cand = 8 * bw;
-  const int w = 3 * n_cand;
-  const float* rp = cand + (poison ? 0 : row) * (long long)w;
+  const float* rp = cand + (poison ? 0 : row) * (long long)(24 * bw);
 
-  // each lane's candidates j = lane + 32 k, in increasing index order
+  // the gated 5-NN select over the row (knn_select.cuh)
   float d[kMaxPerLane];
-#pragma unroll
-  for (int k = 0; k < kMaxPerLane; ++k) {
-    const int j = lane + 32 * k;
-    d[k] = INFINITY;
-    if (!poison && j < n_cand) {
-      const int blk = j / bw, e = j - blk * bw;
-      const float* c = rp + blk * 3 * bw + e;
-      const float dx = __fsub_rn(c[0], qx);
-      const float dy = __fsub_rn(c[bw], qy);
-      const float dz = __fsub_rn(c[2 * bw], qz);
-      d[k] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                       __fmul_rn(dz, dz));
-    }
-  }
-
+  knn_sel::row_d2(rp, bw, qx, qy, qz, poison, lane, d);
   float ds[5];
   int idx[5];
 #pragma unroll
-  for (int pass = 0; pass < 5; ++pass) {
-    float bv = d[0];
-    int bi = lane;
-#pragma unroll
-    for (int k = 1; k < kMaxPerLane; ++k) {
-      if (d[k] < bv) {  // strict: the lowest index wins a tie
-        bv = d[k];
-        bi = lane + 32 * k;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (ov < bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    ds[pass] = bv;
-    idx[pass] = bi;
-    if ((bi & 31) == lane) {
-#pragma unroll
-      for (int k = 0; k < kMaxPerLane; ++k)
-        if (k == (bi >> 5)) d[k] = INFINITY;
-    }
-  }
+  for (int pass = 0; pass < 5; ++pass)
+    knn_sel::select_pass(d, lane, ds[pass], idx[pass]);
   if (lane != 0) return;
 
   // neighbours, zeroed unless the 5th distance passes the gate
@@ -241,8 +201,7 @@ __global__ void assoc_cell_kernel(const float* __restrict__ cand,
   const bool gate = d4 < gate_sq;
   float p[3][5];
   for (int k = 0; k < 5; ++k) {
-    const int blk = idx[k] / bw, e = idx[k] - blk * bw;
-    const float* c = rp + blk * 3 * bw + e;
+    const float* c = knn_sel::cand_x(rp, bw, idx[k]);
     for (int a = 0; a < 3; ++a) p[a][k] = gate && !poison ? c[a * bw] : 0.f;
   }
   float s[3], cen[3], dv[3][5];

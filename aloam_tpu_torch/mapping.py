@@ -1,5 +1,5 @@
 """Scan-to-map refinement on the persistent voxel-hash world map (port of
-``aloam_tpu/mapping.py``, batched form).
+``aloam_tpu/mapping.py``).
 
 Re-design of laserMapping.cpp, as in the JAX package: the map is the
 spatial-hash grid of ops/gridmap.py, query-ready at all times (no
@@ -10,10 +10,14 @@ planes with the 0.2 m inlier check (:642-705), two rounds of ≤ 4 LM
 iterations (:562, :715), and the odom→map correction chain
 transformAssociateToMap / transformUpdate (:142-152).
 
-Each association round runs over cell-sorted stacks (the order the knn
-cache build produces): the solver and every metric reduce over factors
-in any order, and the insert re-sorts by bucket, so nothing is unsorted.
-The map tables are updated in place.
+Two mapping steps share everything but the search. ``mapping_step_b``
+(B streams, the batched step) builds a per-cell knn cache and runs each
+association round through the fused ``assoc_cell`` kernel over
+cell-sorted stacks: the solver and every metric reduce over factors in any
+order, and the insert re-sorts by bucket, so nothing is unsorted.
+``mapping_step`` (one stream, the single-stream step) re-searches every
+round exactly, as the reference does, through ``gridmap.knn`` and the
+``knn_select`` kernel. The map tables are updated in place.
 """
 
 from __future__ import annotations
@@ -137,6 +141,72 @@ def _factors_of(out8, stack_xyz, kind: str):
                                d=out8[..., 3], mask=out8[..., 4] > 0)
 
 
+def _associations(stack_xyz, stack_mask, grid: gridmap.GridMap, q, t,
+                  cfg: AloamConfig, kind: str):
+    """Exact-search factors of one stream: the gated 5-NN of every query
+    (``gridmap.knn``), distances of masked-out queries set to +inf so the
+    shared fit gates and zeroes them, then ``assoc_xla``. stack_xyz (Q, 3)
+    sensor frame, stack_mask (Q,), grid leaves (H, ·), pose q (4,),
+    t (3,)."""
+    sel = geo.qrot(q, stack_xyz) + t
+    d2, near = gridmap.knn(grid, sel, 5, cfg.knn_cell, cfg.knn_radius,
+                           cfg.map_query_chunk)
+    d2 = torch.where(stack_mask[:, None], d2, float("inf"))
+    out8 = assoc_op.assoc_xla(d2, near, cfg.map_knn_gate_sq, kind,
+                              **_assoc_kw(cfg))
+    return _factors_of(out8, stack_xyz, kind)
+
+
+def corner_associations(stack_xyz, stack_mask, grid: gridmap.GridMap, q, t,
+                        cfg: AloamConfig) -> solver.EdgeFactors:
+    """Map-frame edge factors of one stream (laserMapping.cpp:577-640):
+    where the 5 neighbours' covariance has λ₂ > 3λ₁ the neighbourhood is a
+    line, and the factor's virtual points sit at centroid ± 0.1·direction.
+    Shapes as :func:`_associations`."""
+    return _associations(stack_xyz, stack_mask, grid, q, t, cfg, "corner")
+
+
+def surf_associations(stack_xyz, stack_mask, grid: gridmap.GridMap, q, t,
+                      cfg: AloamConfig) -> solver.PlaneFactors:
+    """Map-frame plane factors of one stream (laserMapping.cpp:642-705):
+    solve A·n = -1, normalize, keep the plane iff every neighbour lies
+    within 0.2 m of it. Shapes as :func:`_associations`."""
+    return _associations(stack_xyz, stack_mask, grid, q, t, cfg, "surf")
+
+
+def _associations_b(stack_xyz, stack_mask, grid, q, t, cfg: AloamConfig,
+                    kind: str, cache=None):
+    """Batched factors over input-ordered stacks (B, Q, ·) through the
+    knn cache (``cfg.map_cell_cap`` cells per stream) and the
+    ``knn_select`` kernel; masked-out queries ride the spill slot (+inf
+    distances, gated). ``cache`` from an earlier call is reused as is.
+    Returns (factors, n_spilled (B,), cache)."""
+    sel = geo.qrot(q[:, None, :], stack_xyz) + t[:, None, :]
+    if cache is None:
+        cache = gridmap.knn_cache_b(grid, sel, cfg.knn_cell, cfg.knn_radius,
+                                    cfg.map_cell_cap)
+    cid = torch.where(stack_mask, cache.cid, cache.cell_cap)
+    d2, near, spilled = gridmap.knn_from_cache_b(cache._replace(cid=cid),
+                                                 sel, 5, cfg.map_query_chunk)
+    out8 = assoc_op.assoc_xla(d2, near, cfg.map_knn_gate_sq, kind,
+                              **_assoc_kw(cfg))
+    return _factors_of(out8, stack_xyz, kind), spilled, cache
+
+
+def corner_associations_b(stack_xyz, stack_mask, grid: gridmap.GridMap, q, t,
+                          cfg: AloamConfig, cache=None):
+    """Batched :func:`corner_associations` (see :func:`_associations_b`)."""
+    return _associations_b(stack_xyz, stack_mask, grid, q, t, cfg, "corner",
+                           cache)
+
+
+def surf_associations_b(stack_xyz, stack_mask, grid: gridmap.GridMap, q, t,
+                        cfg: AloamConfig, cache=None):
+    """Batched :func:`surf_associations` (see :func:`_associations_b`)."""
+    return _associations_b(stack_xyz, stack_mask, grid, q, t, cfg, "surf",
+                           cache)
+
+
 def _assoc_out8_b(sel: torch.Tensor, poison: torch.Tensor,
                   cache: gridmap.KnnCache, cfg: AloamConfig, kind: str):
     """One association round over cell-sorted queries.
@@ -194,121 +264,223 @@ def _assoc_out8_b(sel: torch.Tensor, poison: torch.Tensor,
     return out8.view(bsz, q_n, 8)[:, :q_n0], n_spilled
 
 
-def mapping_step_b(state: MapState, corner_in: PointCloud,
-                   surf_in: PointCloud, q_wodom: torch.Tensor,
-                   t_wodom: torch.Tensor, cfg: AloamConfig):
-    """One mapping frame for B streams (laserMapping.cpp process(),
-    :231-888): clouds (B, N, ·), odometry poses (B, 4) / (B, 3). The map
-    tables of ``state`` are updated in place. Returns (new_state,
-    MapMetrics); the refined pose is new_state.(q_w, t_w)."""
-    dev = q_wodom.device
-    # initial guess from the odometry pose (transformAssociateToMap)
+def _world(q_w, t_w, stack: PointCloud):
+    """A (B, N) stack in the map frame at the poses (B, 4) / (B, 3)."""
+    return geo.qrot(q_w[:, None, :], stack.xyz) + t_w[:, None, :]
+
+
+class _Start(NamedTuple):
+    """A mapping frame up to its solve (see :func:`_start`)."""
+    state: MapState             # after the rolling-window discard
+    q_w: torch.Tensor           # initial pose guess (B, 4) / (B, 3)
+    t_w: torch.Tensor
+    solve_ok: torch.Tensor      # (B,) the map-support gate (:554)
+    corner: PointCloud          # downsampled input stacks, sensor frame
+    surf: PointCloud
+    n_map_corner: torch.Tensor  # (B,) live entries near the pose
+    n_map_surf: torch.Tensor
+    cleared: torch.Tensor       # (B,) entries discarded by the window
+    dropped: torch.Tensor       # (B,) stack-cap truncation
+
+
+def _start(state: MapState, corner_in: PointCloud, surf_in: PointCloud,
+           q_wodom, t_wodom, cfg: AloamConfig) -> _Start:
+    """What both mapping steps do before the solve: the initial guess from
+    the odometry pose (transformAssociateToMap, :142-146), the
+    rolling-window discard and the local-map census that gates the solve
+    (:323-554), and the input stack downsample in the sensor frame
+    (:542-550)."""
     q_w = geo.qmul(state.q_wmap_wodom, q_wodom)
     t_w = geo.qrot(state.q_wmap_wodom, t_wodom) + state.t_wmap_wodom
-
     pose_cell = gridmap._cells_of(t_w, cfg.knn_cell)
     state, cleared, n_map_corner, n_map_surf = _eager_evict_count(
         state, pose_cell, cfg)
     solve_ok = (n_map_corner > cfg.map_min_corner) \
         & (n_map_surf > cfg.map_min_surf)
 
-    # input stack downsample (:542-550), sensor frame like the reference
     def downsample(cloud, leaf, cap):
         vals = torch.cat([cloud.xyz, cloud.intensity[..., None]], dim=-1)
         out, m, dropped = voxel_downsample_masked_b(vals, cloud.mask, leaf,
                                                     cap)
-        return out[..., :3], out[..., 3], m, dropped
+        return PointCloud(xyz=out[..., :3], intensity=out[..., 3],
+                          mask=m), dropped
 
-    corner_stack, c_int, c_mask, dc = downsample(
-        corner_in, cfg.line_resolution, cfg.corner_stack_cap)
-    surf_stack, s_int, s_mask, ds_ = downsample(
-        surf_in, cfg.plane_resolution, cfg.surf_stack_cap)
+    corner, dc = downsample(corner_in, cfg.line_resolution,
+                            cfg.corner_stack_cap)
+    surf, ds_ = downsample(surf_in, cfg.plane_resolution, cfg.surf_stack_cap)
+    return _Start(state=state, q_w=q_w, t_w=t_w, solve_ok=solve_ok,
+                  corner=corner, surf=surf, n_map_corner=n_map_corner,
+                  n_map_surf=n_map_surf, cleared=cleared, dropped=dc + ds_)
 
-    def build_cache(grid, stack, inten, m, qq, tt):
+
+def _finish(st: _Start, corner: PointCloud, surf: PointCloud, q_w, t_w,
+            q_wodom, t_wodom, cfg: AloamConfig, n_edge, n_plane, degen,
+            spills, crossed):
+    """What both mapping steps do after the solve: transformUpdate
+    (:148-152), then the insert (:736-801) of both stacks at the refined
+    pose: to the map frame, re-voxelized on the map-anchored grid (PCL's
+    origin-anchored leaves), merged or appended (``insert_vds_b``). Returns
+    (new MapState, MapMetrics)."""
+    q_wmap_wodom = geo.qmul(q_w, geo.qconj(q_wodom))
+    t_wmap_wodom = t_w - geo.qrot(q_wmap_wodom, t_wodom)
+    window = _window_cells(cfg, q_w.device)
+    center = gridmap._cells_of(t_w, cfg.knn_cell)
+
+    def ins(grid, stack, leaf):
+        return gridmap.insert_vds_b(
+            grid, _world(q_w, t_w, stack), stack.intensity, stack.mask, leaf,
+            cfg.knn_cell, center, window, cfg.map_insert_point_cap,
+            cfg.map_insert_cell_cap)
+
+    corner_g, _, _, ev1, dr1 = ins(st.state.corner, corner,
+                                   cfg.line_resolution)
+    surf_g, _, _, ev2, dr2 = ins(st.state.surf, surf, cfg.plane_resolution)
+    new_state = MapState(corner=corner_g, surf=surf_g,
+                         q_wmap_wodom=q_wmap_wodom,
+                         t_wmap_wodom=t_wmap_wodom, q_w=q_w, t_w=t_w)
+    metrics = MapMetrics(
+        from_map_corner=st.n_map_corner, from_map_surf=st.n_map_surf,
+        corner_factors=n_edge, surf_factors=n_plane, solved=st.solve_ok,
+        overflow=st.dropped + dr1 + dr2 + spills,
+        evicted=ev1 + ev2 + st.cleared, degenerate=degen,
+        cache_crossed=crossed)
+    return new_state, metrics
+
+
+def _n_crossed(cells0, sel_c, sel_s, live_c, live_s, cfg: AloamConfig):
+    """Base cells of this round's queries, and how many live queries'
+    cells moved since ``cells0`` (round 1's; see
+    MapMetrics.cache_crossed)."""
+    cells = tuple(gridmap._cells_of(s - cfg.knn_radius, cfg.knn_cell)
+                  for s in (sel_c, sel_s))
+    if cells0 is None:
+        return cells, 0
+    return cells0, ((cells[0] != cells0[0]).any(-1) & live_c).sum(1) \
+        + ((cells[1] != cells0[1]).any(-1) & live_s).sum(1)
+
+
+def mapping_step_b(state: MapState, corner_in: PointCloud,
+                   surf_in: PointCloud, q_wodom: torch.Tensor,
+                   t_wodom: torch.Tensor, cfg: AloamConfig):
+    """One mapping frame for B streams (laserMapping.cpp process(),
+    :231-888): clouds (B, N, ·), odometry poses (B, 4) / (B, 3). Round 2+
+    reuses round 1's knn cache when ``cfg.map_cache_reuse`` (the reference
+    re-runs its kd-tree search each round). The map tables of ``state``
+    are updated in place. Returns (new_state, MapMetrics); the refined
+    pose is new_state.(q_w, t_w)."""
+    st = _start(state, corner_in, surf_in, q_wodom, t_wodom, cfg)
+    q_w, t_w, corner, surf = st.q_w, st.t_w, st.corner, st.surf
+
+    def build_cache(grid, stack, qq, tt):
         """Cache build and the cell sort, carrying the stack through it."""
-        sel0 = geo.qrot(qq[:, None, :], stack) + tt[:, None, :]
         cache, (sx, sy, sz, it, mi) = gridmap.knn_cache_b(
-            grid, sel0, cfg.knn_cell, cfg.knn_radius, cfg.map_cell_cap,
-            payloads=(stack[..., 0], stack[..., 1], stack[..., 2], inten, m))
-        return cache, torch.stack([sx, sy, sz], -1), it, mi
+            grid, _world(qq, tt, stack), cfg.knn_cell, cfg.knn_radius,
+            cfg.map_cell_cap, payloads=(stack.xyz[..., 0], stack.xyz[..., 1],
+                                        stack.xyz[..., 2], stack.intensity,
+                                        stack.mask))
+        return cache, PointCloud(xyz=torch.stack([sx, sy, sz], -1),
+                                 intensity=it, mask=mi)
 
-    bsz = q_w.shape[0]
-    zeros = torch.zeros((bsz,), dtype=torch.int64, device=dev)
+    zeros = torch.zeros_like(st.solve_ok, dtype=torch.int64)
     degen, spills, crossed = zeros, zeros, zeros
     n_edge = n_plane = None
     c_cache = s_cache = cells0 = None
-    for rnd in range(cfg.map_outer_rounds):
-        # round 2+ reuses round 1's candidate blocks (cfg.map_cache_reuse);
-        # the reference re-runs its kd-tree search each round
+    for _ in range(cfg.map_outer_rounds):
         if c_cache is None or not cfg.map_cache_reuse:
-            c_cache, corner_stack, c_int, c_mask = build_cache(
-                state.corner, corner_stack, c_int, c_mask, q_w, t_w)
-            s_cache, surf_stack, s_int, s_mask = build_cache(
-                state.surf, surf_stack, s_int, s_mask, q_w, t_w)
+            c_cache, corner = build_cache(st.state.corner, corner, q_w, t_w)
+            s_cache, surf = build_cache(st.state.surf, surf, q_w, t_w)
             spills = spills + c_cache.n_spilled + s_cache.n_spilled
-        sel_c = geo.qrot(q_w[:, None, :], corner_stack) + t_w[:, None, :]
-        sel_s = geo.qrot(q_w[:, None, :], surf_stack) + t_w[:, None, :]
-        live_c = c_mask & solve_ok[:, None]
-        live_s = s_mask & solve_ok[:, None]
+        sel_c, sel_s = _world(q_w, t_w, corner), _world(q_w, t_w, surf)
+        live_c = corner.mask & st.solve_ok[:, None]
+        live_s = surf.mask & st.solve_ok[:, None]
         if cfg.map_cache_reuse:
             # the reuse deviation: queries whose base cell moved since
-            # round 1 (see MapMetrics.cache_crossed)
-            cc = gridmap._cells_of(sel_c - cfg.knn_radius, cfg.knn_cell)
-            sc = gridmap._cells_of(sel_s - cfg.knn_radius, cfg.knn_cell)
-            if rnd == 0:
-                cells0 = (cc, sc)
-            else:
-                crossed = crossed \
-                    + ((cc != cells0[0]).any(-1) & live_c).sum(1) \
-                    + ((sc != cells0[1]).any(-1) & live_s).sum(1)
+            # round 1
+            cells0, n = _n_crossed(cells0, sel_c, sel_s, live_c, live_s,
+                                   cfg)
+            crossed = crossed + n
         c8, csp = _assoc_out8_b(sel_c, ~live_c, c_cache, cfg, "corner")
         s8, ssp = _assoc_out8_b(sel_s, ~live_s, s_cache, cfg, "surf")
         spills = spills + csp + ssp
-        edges = _factors_of(c8, corner_stack, "corner")
-        planes = _factors_of(s8, surf_stack, "surf")
+        edges = _factors_of(c8, corner.xyz, "corner")
+        planes = _factors_of(s8, surf.xyz, "surf")
         q_w, t_w, stats = lm_solve_b(edges, planes, q_w, t_w,
                                      cfg.map_lm_iters, cfg.huber_delta)
         degen = degen + stats.clamped + stats.nonfinite
         n_edge = edges.mask.sum(dim=1)
         n_plane = planes.mask.sum(dim=1)
+    return _finish(st, corner, surf, q_w, t_w, q_wodom, t_wodom, cfg,
+                   n_edge, n_plane, degen, spills, crossed)
 
-    # transformUpdate (:148-152)
-    q_wmap_wodom = geo.qmul(q_w, geo.qconj(q_wodom))
-    t_wmap_wodom = t_w - geo.qrot(q_wmap_wodom, t_wodom)
 
-    # insert (:736-801): to the map frame, re-voxelize on the map-anchored
-    # grid (PCL's origin-anchored leaves), then merge or append
-    window = _window_cells(cfg, dev)
-    center = gridmap._cells_of(t_w, cfg.knn_cell)
+def _batch1(factors):
+    """Unbatched factors -> the B = 1 factors lm_solve_b takes."""
+    return type(factors)(*(x[None] for x in factors))
 
-    def ins(grid, stack, inten, m, leaf):
-        pts_w = geo.qrot(q_w[:, None, :], stack) + t_w[:, None, :]
-        return gridmap.insert_vds_b(
-            grid, pts_w, inten, m, leaf, cfg.knn_cell, center, window,
-            cfg.map_insert_point_cap, cfg.map_insert_cell_cap)
 
-    corner, _, _, ev1, dr1 = ins(state.corner, corner_stack, c_int, c_mask,
-                                 cfg.line_resolution)
-    surf, _, _, ev2, dr2 = ins(state.surf, surf_stack, s_int, s_mask,
-                               cfg.plane_resolution)
+def mapping_step(state: MapState, corner_in: PointCloud,
+                 surf_in: PointCloud, q_wodom: torch.Tensor,
+                 t_wodom: torch.Tensor, cfg: AloamConfig):
+    """One mapping frame of one stream (laserMapping.cpp process(),
+    :231-888) with the reference's exact per-round re-search: every round
+    runs :func:`corner_associations` / :func:`surf_associations`
+    (``gridmap.knn``) at the current pose, so no query spills and
+    ``cfg.map_cache_reuse`` and ``cfg.map_cell_cap`` do not apply.
+    ``cache_crossed`` is counted as in :func:`mapping_step_b` (the pose
+    moves the same way). state and clouds carry a stream axis of 1: state
+    leaves (1, ·), clouds (1, N, ·), poses (1, 4) / (1, 3). The map tables
+    are updated in place. Returns (new_state, MapMetrics) with (1,)
+    leaves."""
+    if q_wodom.shape[0] != 1:
+        raise ValueError(f"mapping_step: one stream, got {q_wodom.shape[0]}")
+    st = _start(state, corner_in, surf_in, q_wodom, t_wodom, cfg)
+    q_w, t_w, corner, surf = st.q_w, st.t_w, st.corner, st.surf
+    live_c = corner.mask & st.solve_ok[:, None]
+    live_s = surf.mask & st.solve_ok[:, None]
+    grid_c, grid_s = (gridmap.GridMap(pts=g.pts[0], aux=g.aux[0])
+                      for g in (st.state.corner, st.state.surf))
+    degen = crossed = torch.zeros_like(st.solve_ok, dtype=torch.int64)
+    n_edge = n_plane = cells0 = None
+    for _ in range(cfg.map_outer_rounds):
+        cells0, n = _n_crossed(cells0, _world(q_w, t_w, corner),
+                               _world(q_w, t_w, surf), live_c, live_s, cfg)
+        crossed = crossed + n
+        edges = corner_associations(corner.xyz[0], live_c[0], grid_c,
+                                    q_w[0], t_w[0], cfg)
+        planes = surf_associations(surf.xyz[0], live_s[0], grid_s, q_w[0],
+                                   t_w[0], cfg)
+        q_w, t_w, stats = lm_solve_b(_batch1(edges), _batch1(planes), q_w,
+                                     t_w, cfg.map_lm_iters, cfg.huber_delta)
+        degen = degen + stats.clamped + stats.nonfinite
+        n_edge = edges.mask.sum()[None]
+        n_plane = planes.mask.sum()[None]
+    return _finish(st, corner, surf, q_w, t_w, q_wodom, t_wodom, cfg,
+                   n_edge, n_plane, degen, torch.zeros_like(degen), crossed)
 
-    new_state = MapState(corner=corner, surf=surf,
-                         q_wmap_wodom=q_wmap_wodom,
-                         t_wmap_wodom=t_wmap_wodom, q_w=q_w, t_w=t_w)
-    metrics = MapMetrics(
-        from_map_corner=n_map_corner, from_map_surf=n_map_surf,
-        corner_factors=n_edge, surf_factors=n_plane, solved=solve_ok,
-        overflow=dc + ds_ + dr1 + dr2 + spills,
-        evicted=ev1 + ev2 + cleared, degenerate=degen,
-        cache_crossed=crossed)
-    return new_state, metrics
+
+def _per_stream(grid: gridmap.GridMap):
+    """Per stream, the (points (N, 3), intensity (N,)) of the live entries
+    (numpy)."""
+    return [gridmap.extract(gridmap.GridMap(grid.pts[b], grid.aux[b]))
+            for b in range(grid.pts.shape[0])]
 
 
 def extract_map_cloud(state: MapState, cfg: AloamConfig):
     """Host-side full-map extraction, the /laser_cloud_map equivalent
     (laserMapping.cpp:823-836). Returns (corner, surf): per-stream lists
     of (N, 3) numpy arrays."""
-    def per_stream(g):
-        return [gridmap.extract(gridmap.GridMap(g.pts[b], g.aux[b]))[0]
-                for b in range(g.pts.shape[0])]
-    return per_stream(state.corner), per_stream(state.surf)
+    return tuple([p for p, _ in _per_stream(g)]
+                 for g in (state.corner, state.surf))
+
+
+def extract_surround(state: MapState, cfg: AloamConfig):
+    """Host-side local-neighbourhood extraction around the latest pose,
+    the /laser_cloud_surround equivalent (laserMapping.cpp:806-821): the
+    live entries within the 5×5×3-cube neighbourhood of each stream's
+    pose. Returns (corner, surf): per-stream lists of (N, 3) numpy
+    arrays."""
+    half = np.array([2.5, 2.5, 1.5]) * cfg.cube_size
+    t = state.t_w.cpu().numpy()
+    return tuple([p[np.all(np.abs(p - t[b]) <= half, axis=1)]
+                  for b, (p, _) in enumerate(_per_stream(g))]
+                 for g in (state.corner, state.surf))

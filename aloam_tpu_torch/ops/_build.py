@@ -2,9 +2,10 @@
 
 All sources under ``aloam_tpu_torch/csrc/`` compile into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
-seconds): one ``nvcc -c`` per source, all started together, then one
-link. The library lands in ``aloam_tpu_torch/_build/`` under a name keyed
-on a hash of the sources and flags, so an edited source rebuilds.
+seconds): one ``nvcc -c`` per ``.cu`` source, all started together, then
+one link. The library lands in ``aloam_tpu_torch/_build/`` under a name
+keyed on a hash of the sources, the shared ``.cuh`` headers and the
+flags, so an edited source or header rebuilds.
 ``-fmad=false`` keeps every multiply and add rounded on its own, as the
 kernels' plain PyTorch versions round them, so a kernel and its plain
 version can agree bit for bit.
@@ -44,6 +45,7 @@ SIGNATURES = {
     "aloam_assoc_cell": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                          _F, _P),
     "aloam_merge_tiles": (_P,) * 17 + (_I, _I, _I, _I, _F, _F, _P),
+    "aloam_knn_select": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -61,7 +63,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libaloam_kernels_{h.hexdigest()[:16]}.so"

@@ -3,10 +3,11 @@
 Port of ``aloam_tpu/ops/pallas_assoc.py``: per cell-sorted query, pick its
 cell's candidate row, run the gated 5-NN select, then the PCA line fit
 (corner) or the plane fit (surf) of laserMapping.cpp:577-705, and emit 8
-floats. The CUDA kernel is ``csrc/assoc.cu`` (one warp per query). The
-plain version beside it is the JAX package's XLA path: a per-query row
-gather with the 5-pass select (``gridmap.knn_from_cache_b``), then
-:func:`assoc_xla`.
+floats. The CUDA kernel is ``csrc/assoc.cu`` (one warp per query, its
+select shared with ``csrc/knn.cu``). The plain version beside it is the
+JAX package's XLA path: a per-query row gather with the 5-pass select
+(``ops/knn.knn_select_plain``, called as the plain version on every
+device), then :func:`assoc_xla`.
 
 Packed output columns, (N, 8) f32 for both kinds:
   corner: [ax, ay, az, bx, by, bz, ok, d2_4]
@@ -23,44 +24,13 @@ from __future__ import annotations
 import torch
 
 from aloam_tpu_torch.ops import _build
+from aloam_tpu_torch.ops import knn as knn_op
 from aloam_tpu_torch.ops.linalg3 import eigh3, solve3, true_div
 
 launches = 0  # kernel launches since the last reset
 
 OUT_W = 8
-_INF = float("inf")
 _KINDS = {"corner": 0, "surf": 1}
-# queries per gather chunk of the plain version (bounds its (chunk, 24 Bk)
-# row copy)
-_PLAIN_CHUNK = 8192
-
-
-def select_passes(crow: torch.Tensor, q: torch.Tensor, poison: torch.Tensor,
-                  k: int):
-    """Gated k-pass select over block-planar candidate rows.
-
-    crow (..., 8·3·bw): 8 sub-blocks of [x(bw) | y(bw) | z(bw)]; candidate
-    j = block·bw + e. q (..., 3) queries, poison (...) bool (all distances
-    +inf). Each pass takes the minimum d2 with the lowest index on a tie
-    and sets it to +inf, so a row with fewer than k finite candidates picks
-    its lowest-index +inf candidate from then on. Returns (d2 (..., k),
-    nbrs (..., k, 3))."""
-    lead = crow.shape[:-1]
-    bw = crow.shape[-1] // 24
-    blk = crow.reshape(lead + (8, 3, bw))
-    xs, ys, zs = (blk[..., c, :].reshape(lead + (8 * bw,)) for c in range(3))
-    dx = xs - q[..., 0:1]
-    dy = ys - q[..., 1:2]
-    dz = zs - q[..., 2:3]
-    d2 = dx * dx + dy * dy + dz * dz
-    d2 = torch.where(poison[..., None], _INF, d2)
-    ds, nb = [], []
-    for _ in range(k):
-        am = d2.argmin(dim=-1, keepdim=True)
-        ds.append(d2.gather(-1, am))
-        nb.append(torch.cat([c.gather(-1, am) for c in (xs, ys, zs)], -1))
-        d2 = d2.scatter(-1, am, _INF)
-    return torch.cat(ds, -1), torch.stack(nb, -2)
 
 
 def _sum5(v):
@@ -130,18 +100,14 @@ def assoc_cell_plain(cand_flat, cid0, q8, kind: str, gate_sq: float,
                      plane_tol: float = 0.2, eigen_ratio: float = 3.0,
                      half_len: float = 0.1, tq: int = 256,
                      cspan: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of :func:`assoc_cell`: poisoned queries are
-    routed to the spill slot (+inf distances, the JAX XLA path's routing)
-    and every query gathers its row."""
-    from aloam_tpu_torch.ops import gridmap
+    """Plain PyTorch version of :func:`assoc_cell`: every query gathers
+    its row and runs the plain select (never the knn kernel, whatever the
+    device); a poisoned query reads row 0 with +inf distances."""
     row, poison = _rows(cand_flat, cid0, q8, tq, cspan)
-    ctot = cand_flat.shape[0]
-    cache = gridmap.KnnCache(cand_flat=cand_flat[None],
-                             cid=torch.where(poison, ctot, row)[None],
-                             cid_sorted=None, n_spilled=None, cell_cap=ctot)
-    d2, near, _ = gridmap.knn_from_cache_b(cache, q8[None, :, :3], 5,
-                                           _PLAIN_CHUNK)
-    return assoc_xla(d2[0], near[0], gate_sq, kind, plane_tol, eigen_ratio,
+    q4 = torch.cat([q8[:, :3], poison[:, None].to(q8.dtype)], dim=1)
+    d2, near = knn_op.knn_select_plain(cand_flat, torch.where(poison, 0, row),
+                                       q4, 5)
+    return assoc_xla(d2, near, gate_sq, kind, plane_tol, eigen_ratio,
                      half_len)
 
 

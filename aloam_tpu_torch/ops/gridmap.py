@@ -28,8 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from aloam_tpu_torch.ops import assoc as assoc_op
 from aloam_tpu_torch.ops import insert as insert_op
+from aloam_tpu_torch.ops import knn as knn_op
 from aloam_tpu_torch.ops.linalg3 import true_div
 from aloam_tpu_torch.utils.batch import bgather
 
@@ -245,20 +245,51 @@ def knn_cache_b(grid: GridMap, query: torch.Tensor, cell_size: float,
 def knn_from_cache_b(cache: KnnCache, query: torch.Tensor, k: int,
                      query_chunk: int = 0):
     """Gated k-NN of (possibly pose-refined) queries (B, Q, 3) against a
-    KnnCache: each query gathers its cell's candidate row and runs the
-    k-pass select; a query at the spill slot (cid >= cell_cap) gets +inf
+    KnnCache: each query's cell row runs the k-pass select
+    (``ops/knn.knn_select``: the kernel for CUDA tensors, the plain version
+    for CPU ones, whose row copy ``query_chunk`` bounds); a query at the
+    spill slot (cid >= cell_cap) reads the last cell's row with +inf
     distances. Returns (d2 (B, Q, k), nbrs (B, Q, k, 3), n_spilled)."""
-    q_n = query.shape[1]
-    qc = query_chunk if query_chunk else min(q_n, 2048)
-    ds, nbs = [], []
-    for s in range(0, q_n, qc):
-        cid = cache.cid[:, s:s + qc]
-        crow = bgather(cache.cand_flat, cid.clamp_max(cache.cell_cap - 1))
-        d2, nb = assoc_op.select_passes(crow, query[:, s:s + qc],
-                                        cid >= cache.cell_cap, k)
-        ds.append(d2)
-        nbs.append(nb)
-    return torch.cat(ds, 1), torch.cat(nbs, 1), cache.n_spilled
+    bsz, q_n = query.shape[:2]
+    crows = cache.cand_flat.shape[1]
+    cid = cache.cid
+    poison = cid >= cache.cell_cap
+    row = cid.clamp_max(cache.cell_cap - 1) \
+        + torch.arange(bsz, device=cid.device)[:, None] * crows
+    q4 = torch.cat([query, poison[..., None].to(query.dtype)], dim=-1)
+    d2, nbrs = knn_op.knn_select(
+        cache.cand_flat.reshape(bsz * crows, -1), row.reshape(-1).int(),
+        q4.reshape(-1, 4), k, query_chunk)
+    return d2.view(bsz, q_n, k), nbrs.view(bsz, q_n, k, 3), cache.n_spilled
+
+
+def knn_b(grid: GridMap, query: torch.Tensor, k: int, cell_size: float,
+          radius: float = 1.0, query_chunk: int = 0, cell_cap: int = 4096):
+    """Batched gated k-NN through the shared-cell cache: grid leaves
+    (B, H, ·), query (B, Q, 3). Queries beyond ``cell_cap`` distinct cells
+    per stream come back with +inf distances and are counted. Returns
+    (d2 (B, Q, k), nbrs (B, Q, k, 3), n_spilled (B,))."""
+    cache = knn_cache_b(grid, query, cell_size, radius, cell_cap)
+    return knn_from_cache_b(cache, query, k, query_chunk)
+
+
+def knn(grid: GridMap, query: torch.Tensor, k: int, cell_size: float,
+        radius: float = 1.0, query_chunk: int = 0):
+    """Gated exact k-NN of one stream: grid leaves (H, ·), query (Q, 3).
+    Every map point within ``radius`` of a query lies in the 2×2×2 cell
+    block at floor((q - radius) / cell). Returns (d2 (Q, k) ascending,
+    +inf where fewer than k candidates are left, nbrs (Q, k, 3)).
+
+    This is :func:`knn_b` at B = 1 with ``cell_cap = Q``, so no query can
+    spill, as none can in the JAX package's ``knn`` (a per-query block
+    gather and ``lax.top_k``), which its tests pin equal to ``knn_b``
+    (tests/test_batched_kernels.py:209). The two differ only where no gate
+    looks: a bucket that two block cells share is read once, its copy at
+    the ``_FAR`` sentinel here and at d2 = +inf in JAX's ``knn``."""
+    g1 = GridMap(pts=grid.pts[None], aux=grid.aux[None])
+    d2, nbrs, _ = knn_b(g1, query[None], k, cell_size, radius, query_chunk,
+                        cell_cap=query.shape[0])
+    return d2[0], nbrs[0]
 
 
 def insert_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,

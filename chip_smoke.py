@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's SLAM step once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's SLAM steps once on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA:
@@ -6,29 +6,45 @@ toolkit (nvcc) and PyTorch built for CUDA:
     python3 chip_smoke.py
 
 It needs no JAX: of the JAX package it imports only the framework-free
-``aloam_tpu.config``, ``aloam_tpu.io.synthetic`` and ``aloam_tpu.eval.ate``.
+``aloam_tpu.config``, ``aloam_tpu.io.synthetic``, ``aloam_tpu.eval`` and
+``aloam_tpu.utils.tictoc`` (the last two through the port's CLI).
 Phases, each printing its own lines:
 
 1. device: the card's name and power limit (from nvidia-smi), torch and
    CUDA versions; TF32 off;
-2. build: the six CUDA kernels from ``aloam_tpu_torch/csrc/`` (one nvcc
+2. build: the seven CUDA kernels from ``aloam_tpu_torch/csrc/`` (one nvcc
    per source, sm_90a);
 3. data: B = 16 synthetic HDL-64 streams of 8 frames (the bench's seeds
    and speeds), padded to the bench config (``bench.batched_bench_cfg``:
    ring_cap 1856, n_raw 115200, less_flat_cap 36864, assoc_cspan 128,
-   map_query_chunk 2048), cached under ``.bench_cache/``;
-4. kernels: each kernel against its plain PyTorch version on the card, on
-   every distinct input shape the main path gave it in frame 1 of
-   ``step_b``, with the stated tolerance, and both timed with CUDA events;
+   map_query_chunk 2048), and the single-stream bench scene (seed 42,
+   10 m/s, padded to ``PRESETS["HDL-64"]``), cached under
+   ``.bench_cache/``;
+4. kernels: each of step_b's six kernels against its plain PyTorch
+   version on the card, on every distinct input shape the main path gave
+   it in frame 1 of ``step_b``, with the stated tolerance, and both timed
+   with CUDA events;
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
    kernels (its four launch counters must rise) and with the plain
    versions; per-frame odometry poses must agree;
-6. step: ``pipeline.step_b`` over the 8 frames with the kernels (all six
+6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its six
    launch counters must rise) and with the plain versions; map poses must
    agree (tightly unless a gate flipped); a third kernel run times each
    stage and mapping sub-stage with CUDA events; scans/s, peak device
    memory and the odometry and mapped ATE against the ground truth (must
-   be < 0.5 m).
+   be < 0.5 m);
+7. knn: the ``knn_select`` kernel against its plain version (bit-equal)
+   and timed, at the inputs frame 1 of the single-stream step gave it and
+   at one B = 16 ``corner_associations_b`` / ``surf_associations_b`` call
+   on the map phase 6 left;
+8. single: ``pipeline.step`` over the single-stream scene's 8 frames at
+   ``PRESETS["HDL-64"]`` with the kernels (its six launch counters, knn
+   among them, must rise) and with the plain versions; map poses as in
+   phase 6; ms/scan, peak device memory, a staged kernel run as in phase
+   6, and the odometry and mapped ATE (< 0.5 m);
+9. cli: ``aloam_tpu_torch.cli.main`` over 4 synthetic HDL-64 frames with a
+   checkpoint every 2, its eval.json and metrics.jsonl read back, and a
+   run resumed from the frame-2 checkpoint must give frame 3's pose.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -42,6 +58,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,9 +67,15 @@ B = 16
 N_FRAMES = 8           # bench.py's batched default
 N_FRONT = 5            # frames of the front_step_b phase
 N_AZIMUTH = 1800
-CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     ".bench_cache",
+CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         ".bench_cache")
+CACHE = os.path.join(CACHE_DIR,
                      f"chip_smoke_hdl64_a{N_AZIMUTH}_b{B}_f{N_FRAMES}.npz")
+# the single-stream bench scene (bench.bench_single: seed 42, 10 m/s)
+SINGLE_SEED, SINGLE_SPEED = 42, 10.0
+SINGLE_CACHE = os.path.join(
+    CACHE_DIR, f"chip_smoke_single_hdl64_a{N_AZIMUTH}_f{N_FRAMES}_"
+    f"s{SINGLE_SEED}.npz")
 # kernel name -> (module, kernel function, plain function, CUDA source,
 # the Pallas kernel it replaces at its pallas_call)
 KERNELS = {
@@ -75,9 +98,15 @@ KERNELS = {
     "merge_tiles": ("insert", "merge_tiles", "merge_tiles_plain",
                     "aloam_tpu_torch/csrc/insert.cu",
                     "aloam_tpu/ops/pallas_insert.py:167"),
+    "knn_select": ("knn", "knn_select", "knn_select_plain",
+                   "aloam_tpu_torch/csrc/knn.cu",
+                   "aloam_tpu/ops/pallas_knn.py:108"),
 }
+# the kernels each path runs
 FRONT_KERNELS = ("select_rings", "segmented_prefix_sums", "window_mins",
                  "lm_fused")
+STEP_KERNELS = FRONT_KERNELS + ("assoc_cell", "merge_tiles")
+SINGLE_KERNELS = FRONT_KERNELS + ("merge_tiles", "knn_select")
 # step_b's stages and mapping sub-stages, timed with CUDA events:
 # label -> (module, attribute called through it)
 STAGES = {
@@ -92,6 +121,17 @@ STAGES = {
     "map.assoc": ("aloam_tpu_torch.mapping", "_assoc_out8_b"),
     "map.lm": ("aloam_tpu_torch.mapping", "lm_solve_b"),
     "map.insert": ("aloam_tpu_torch.ops.gridmap", "insert_vds_b"),
+}
+# the single-stream step's stages: its front half is step_b's at B = 1,
+# its mapping searches exactly every round (gridmap.knn)
+SINGLE_STAGES = {
+    **{k: v for k, v in STAGES.items() if k in ("register", "features",
+                                                 "odometry", "map.evict",
+                                                 "map.downsample",
+                                                 "map.lm", "map.insert")},
+    "mapping": ("aloam_tpu_torch.mapping", "mapping_step"),
+    "map.knn": ("aloam_tpu_torch.ops.gridmap", "knn"),
+    "map.fit": ("aloam_tpu_torch.ops.assoc", "assoc_xla"),
 }
 
 
@@ -140,6 +180,27 @@ def make_streams(cfg):
     return xyz, mask, gt
 
 
+def make_single(cfg):
+    """(F, n_raw, 3) xyz, (F, n_raw) mask, (F, 3) ground truth of
+    bench.bench_single's scene, padded to cfg.n_raw."""
+    if os.path.exists(SINGLE_CACHE):
+        z = np.load(SINGLE_CACHE)
+        return z["xyz"], z["mask"], z["gt"]
+    from aloam_tpu.io import synthetic as syn
+    scans, traj = syn.make_sequence(N_FRAMES, scan_lines=64,
+                                    n_azimuth=N_AZIMUTH, seed=SINGLE_SEED,
+                                    speed=SINGLE_SPEED)
+    pads = [syn.pad_scan(s, cfg.n_raw) for s in scans]
+    xyz = np.stack([p[0] for p in pads])
+    mask = np.stack([p[1] for p in pads])
+    gt = (traj.trans - traj.trans[0]).astype(np.float32)
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    tmp = SINGLE_CACHE + f".{os.getpid()}.tmp.npz"
+    np.savez(tmp, xyz=xyz, mask=mask, gt=gt)
+    os.replace(tmp, SINGLE_CACHE)
+    return xyz, mask, gt
+
+
 class Patched:
     """Swap module attributes for the duration of a with-block."""
 
@@ -174,12 +235,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_frames(step, pipeline, cfg, frames, device):
-    """``step`` (front_step_b or step_b) over every frame from a fresh
-    state; returns the per-frame outputs (on the host, as dicts) and host
-    milliseconds per frame."""
+def run_frames(step, pipeline, cfg, frames, device, batch=B):
+    """``step`` (front_step_b, step_b, or step with batch 1) over every
+    frame from a fresh state; returns the per-frame outputs (on the host,
+    as dicts), host milliseconds per frame and the final state."""
     import torch
-    st = pipeline.init_state(cfg, B, device)
+    st = pipeline.init_state(cfg, batch, device)
     outs, ms = [], []
     for xyz, mask in frames:
         torch.cuda.synchronize()
@@ -189,8 +250,8 @@ def run_frames(step, pipeline, cfg, frames, device):
         ms.append((time.perf_counter() - t0) * 1e3)
         outs.append({k: (v.cpu().numpy() if torch.is_tensor(v) else
                          {n: m.cpu().numpy() for n, m in v.items()})
-                     for k, v in out._asdict().items()})
-    return outs, ms
+                     for k, v in out._asdict().items() if v is not None})
+    return outs, ms, st
 
 
 def absdiff(got, want):
@@ -218,7 +279,10 @@ def compare(name, got, want, kind=None):
                              operations in the same order (bit-equal where
                              measured), a margin for a near-tie;
       merge_tiles            every output exact (no arithmetic but the
-                             midpoint and the priority formula, identical)."""
+                             midpoint and the priority formula, identical);
+      knn_select             d2 and neighbours exact (the same rounded
+                             operations in the same order, lowest-index
+                             ties)."""
     import torch
     if name == "select_rings":
         err = absdiff(got, want).max().item()
@@ -228,7 +292,7 @@ def compare(name, got, want, kind=None):
         err = d.max().item()
         ok = bool((d <= 1e-5 + 1e-6 * want.abs()).all()) \
             and torch.equal(got[-1], want[-1])
-    elif name in ("window_mins", "merge_tiles"):
+    elif name in ("window_mins", "merge_tiles", "knn_select"):
         err = max(absdiff(g, w).max().item() for g, w in zip(got, want))
         ok = all(torch.equal(g, w) for g, w in zip(got, want))
     elif name == "assoc_cell":
@@ -252,13 +316,12 @@ def compare(name, got, want, kind=None):
     return err
 
 
-def check_kernels(pipeline, mods, cfg, frames, device, card):
-    """Phase 4: record each kernel's inputs in frame 1 of step_b (one
-    record per distinct shape), then compare and time kernel and plain
-    version on them. Returns {name: dict(max_abs_err, ms, plain_ms)}, the
-    times of each kernel's largest input."""
+def record_inputs(mods, names, drive):
+    """Run ``drive()`` with each named kernel's wrapper recording its
+    inputs, one record per distinct input signature. Returns {(name,
+    signature): (args, kw)}."""
     import torch
-    recorded = {}                       # (name, signature) -> (args, kw)
+    recorded = {}
 
     def recorder(name, fn):
         def call(*args, **kw):
@@ -270,16 +333,23 @@ def check_kernels(pipeline, mods, cfg, frames, device, card):
             return fn(*args, **kw)
         return call
 
-    st = pipeline.init_state(cfg, B, device)
-    st, _ = pipeline.step_b(st, *frames[0], cfg)
-    swaps = [(mods[n], spec[1], recorder(n, getattr(mods[n], spec[1])))
-             for n, spec in KERNELS.items()]
+    swaps = [(mods[n], KERNELS[n][1], recorder(n, getattr(mods[n],
+                                                          KERNELS[n][1])))
+             for n in names]
     with Patched(swaps):
-        pipeline.step_b(st, *frames[1], cfg)
+        drive()
     torch.cuda.synchronize()
-    del st
+    missing = set(names) - {name for name, _ in recorded}
+    if missing:
+        fail(f"the main path never called {sorted(missing)}")
+    return recorded
 
-    results = {}
+
+def check_recorded(mods, recorded, results, card):
+    """Compare and time kernel and plain version on each recorded input;
+    ``results`` keeps per kernel the worst error and the times of its
+    largest input."""
+    import torch
     for (name, _), (args, kw) in sorted(recorded.items(),
                                         key=lambda kv: str(kv[0])):
         mod, spec = mods[name], KERNELS[name]
@@ -302,10 +372,55 @@ def check_kernels(pipeline, mods, cfg, frames, device, card):
                                  size=size)
         else:
             prev["max_abs_err"] = max(err, prev["max_abs_err"])
-    missing = set(KERNELS) - set(results)
-    if missing:
-        fail(f"the main path never called {sorted(missing)}")
+
+
+def check_kernels(pipeline, mods, cfg, frames, device, card):
+    """Phase 4: step_b's kernels at the inputs frame 1 of step_b gives
+    them. Returns {name: dict(max_abs_err, ms, plain_ms, size)}."""
+    st = pipeline.init_state(cfg, B, device)
+    st, _ = pipeline.step_b(st, *frames[0], cfg)
+    recorded = record_inputs(
+        mods, STEP_KERNELS, lambda: pipeline.step_b(st, *frames[1], cfg))
+    del st
+    results = {}
+    check_recorded(mods, recorded, results, card)
     return results
+
+
+def check_knn(pipeline, mods, cfg_b, map_state, odom_state, cfg_1, single,
+              device, results, card):
+    """Phase 7: knn_select at the inputs frame 1 of the single-stream step
+    gives it, and at one B = 16 corner_associations_b and
+    surf_associations_b call on ``map_state`` (phase 6's last map) with
+    the last frame's handoff clouds, downsampled to the stack caps."""
+    import torch
+    from aloam_tpu_torch import mapping as mp
+    from aloam_tpu_torch.frontend.voxel import voxel_downsample_masked_b
+
+    st = pipeline.init_state(cfg_1, 1, device)
+    st, _ = pipeline.step(st, *single[0], cfg_1)
+    recorded = record_inputs(
+        mods, ("knn_select",),
+        lambda: pipeline.step(st, *single[1], cfg_1))
+    del st
+
+    def assoc_b():
+        for fn, cloud, grid, leaf, cap in (
+                (mp.corner_associations_b, odom_state.corner_last,
+                 map_state.corner, cfg_b.line_resolution,
+                 cfg_b.corner_stack_cap),
+                (mp.surf_associations_b, odom_state.surf_last,
+                 map_state.surf, cfg_b.plane_resolution,
+                 cfg_b.surf_stack_cap)):
+            vals = torch.cat([cloud.xyz, cloud.intensity[..., None]], -1)
+            ds, m, _ = voxel_downsample_masked_b(vals, cloud.mask, leaf, cap)
+            f, _, _ = fn(ds[..., :3], m, grid, map_state.q_w, map_state.t_w,
+                         cfg_b)
+            if int(f.mask.sum()) == 0:
+                fail(f"{fn.__name__}: no factors on the B={B} map")
+
+    recorded.update(record_inputs(mods, ("knn_select",), assoc_b))
+    check_recorded(mods, recorded, results, card)
 
 
 def run_front(pipeline, mods, cfg, frames, device, card):
@@ -313,16 +428,16 @@ def run_front(pipeline, mods, cfg, frames, device, card):
     versions."""
     for name in FRONT_KERNELS:
         mods[name].launches = 0
-    k_outs, k_ms = run_frames(pipeline.front_step_b, pipeline, cfg, frames,
-                              device)
+    k_outs, k_ms, _ = run_frames(pipeline.front_step_b, pipeline, cfg,
+                                 frames, device)
     launches = {name: mods[name].launches for name in FRONT_KERNELS}
     say(f"[front] kernel launches over {len(frames)} frames: {launches}")
     if min(launches.values()) < 1:
         fail(f"a kernel of the front path was never launched: {launches}")
     with Patched([(mods[n], KERNELS[n][1], getattr(mods[n], KERNELS[n][2]))
                   for n in FRONT_KERNELS]):
-        p_outs, p_ms = run_frames(pipeline.front_step_b, pipeline, cfg,
-                                  frames, device)
+        p_outs, p_ms, _ = run_frames(pipeline.front_step_b, pipeline, cfg,
+                                     frames, device)
     cols = [lambda o, c=c: o["metrics"][c]
             for c in ("corner_corr", "plane_corr")]
     for f, (ko, po) in enumerate(zip(k_outs, p_outs)):
@@ -345,12 +460,12 @@ def run_front(pipeline, mods, cfg, frames, device, card):
         f"{B * 1e3 / sp:.1f} scans/s (B={B}, {card})")
 
 
-def stage_times(pipeline, cfg, frames, device):
-    """A kernel run of step_b with CUDA events around each stage and
+def stage_times(step, stages, pipeline, cfg, frames, device, batch):
+    """A kernel run of ``step`` with CUDA events around each stage and
     mapping sub-stage (the device time between the stage's first and last
     operation). Returns {label: per-frame ms list}."""
     import torch
-    events = {label: [] for label in STAGES}
+    events = {label: [] for label in stages}
 
     def timed(label, fn):
         def call(*args, **kw):
@@ -364,62 +479,54 @@ def stage_times(pipeline, cfg, frames, device):
         return call
 
     swaps = []
-    for label, (mod_name, attr) in STAGES.items():
+    for label, (mod_name, attr) in stages.items():
         mod = importlib.import_module(mod_name)
         swaps.append((mod, attr, timed(label, getattr(mod, attr))))
-    per_frame = {label: [] for label in STAGES}
+    per_frame = {label: [] for label in stages}
     with Patched(swaps):
-        st = pipeline.init_state(cfg, B, device)
+        st = pipeline.init_state(cfg, batch, device)
         for xyz, mask in frames:
-            for label in STAGES:
+            for label in stages:
                 events[label].append([])
-            st, _ = pipeline.step_b(st, xyz, mask, cfg)
+            st, _ = step(st, xyz, mask, cfg)
             torch.cuda.synchronize()
-            for label in STAGES:
+            for label in stages:
                 per_frame[label].append(sum(s.elapsed_time(e)
                                             for s, e in events[label][-1]))
     return per_frame
 
 
-def run_step(pipeline, mods, cfg, frames, gt, device, card):
-    """Phase 6: step_b with the kernels, with the plain versions, and a
-    staged kernel run."""
-    import torch
-    from aloam_tpu.eval.ate import ate_rmse
+def say_stages(tag, per_frame, card):
+    med = {label: float(np.median(v[1:])) for label, v in per_frame.items()}
+    say(f"[{tag}] device ms per frame by stage, CUDA events, median of "
+        f"frames 1-{len(next(iter(per_frame.values()))) - 1}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items()) + f" ({card})")
+
+
+def pose_agreement(tag, k_outs, p_outs, k_ms, p_ms, batch):
+    """Map poses of a kernel run and a plain run, frame by frame: within
+    1e-3 (q) / 5e-3 m (t) unless a gate flipped in that stream (from then
+    on), and within 2.5e-2 always."""
     from aloam_tpu_torch.pipeline import METRIC_NAMES
-
-    for mod in mods.values():
-        mod.launches = 0
-    torch.cuda.reset_peak_memory_stats(device)
-    k_outs, k_ms = run_frames(pipeline.step_b, pipeline, cfg, frames, device)
-    peak = torch.cuda.max_memory_allocated(device)
-    launches = {name: mods[name].launches for name in KERNELS}
-    say(f"[step] kernel launches over {len(frames)} frames: {launches}")
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the step was never launched: {launches}")
-    with Patched([(mods[n], spec[1], getattr(mods[n], spec[2]))
-                  for n, spec in KERNELS.items()]):
-        p_outs, p_ms = run_frames(pipeline.step_b, pipeline, cfg, frames,
-                                  device)
-    if any(mods[n].launches != launches[n] for n in KERNELS):
-        fail("the plain run launched a kernel")
-
     col = {n: i for i, n in enumerate(METRIC_NAMES)}
     gates = ("corner_corr", "plane_corr", "map_corner_factors",
              "map_surf_factors", "map_solved")
-    flipped = np.zeros(B, bool)
+    flipped = np.zeros(batch, bool)
     for f, (ko, po) in enumerate(zip(k_outs, p_outs)):
         for name in ("q_odom", "t_odom", "q_map", "t_map"):
-            if ko[name].shape[0] != B or not np.isfinite(ko[name]).all():
-                fail(f"step frame {f}: non-finite or misshapen {name}")
+            v = np.reshape(ko[name], (batch, -1))
+            if not np.isfinite(v).all():
+                fail(f"{tag} frame {f}: non-finite or misshapen {name}")
         # a gate that flipped on a rounding difference (the f64 plain
         # segmented sums, summation order) changes a count; from then on
         # that stream may drift apart
+        km = np.reshape(ko["metrics"], (batch, -1))
+        pm = np.reshape(po["metrics"], (batch, -1))
         for g in gates:
-            flipped |= ko["metrics"][:, col[g]] != po["metrics"][:, col[g]]
-        dq = np.abs(ko["q_map"] - po["q_map"]).max(axis=1)
-        dt = np.abs(ko["t_map"] - po["t_map"]).max(axis=1)
-        say(f"[step] frame {f}: kernel {k_ms[f]:.1f} ms plain {p_ms[f]:.1f} "
+            flipped |= km[:, col[g]] != pm[:, col[g]]
+        dq = np.abs(np.reshape(ko["q_map"] - po["q_map"], (batch, -1))).max(1)
+        dt = np.abs(np.reshape(ko["t_map"] - po["t_map"], (batch, -1))).max(1)
+        say(f"[{tag}] frame {f}: kernel {k_ms[f]:.1f} ms plain {p_ms[f]:.1f} "
             f"ms; map max |dq| {dq.max():.3g} max |dt| {dt.max():.3g} m; "
             f"gate flips in streams {np.flatnonzero(flipped).tolist()}")
         # with a flip, the bound JAX holds its own batched and single
@@ -427,36 +534,135 @@ def run_step(pipeline, mods, cfg, frames, gt, device, card):
         bad = (((dq > 1e-3) | (dt > 5e-3)) & ~flipped) \
             | (dq > 2.5e-2) | (dt > 2.5e-2)
         if bad.any():
-            fail(f"step frame {f}: map poses differ in streams "
+            fail(f"{tag} frame {f}: map poses differ in streams "
                  f"{np.flatnonzero(bad).tolist()}")
 
+
+def ate_check(tag, k_outs, gt, batch):
+    """Odometry and mapped ATE of a kernel run against the ground truth
+    (B, F, 3); fails at 0.5 m."""
+    from aloam_tpu.eval.ate import ate_rmse
+    for name, key in (("odometry", "t_odom"), ("mapped", "t_map")):
+        est = np.stack([np.reshape(o[key], (batch, 3)) for o in k_outs],
+                       axis=1)                                    # (B, F, 3)
+        ate = np.array([ate_rmse(est[b], gt[b], align=False)
+                        for b in range(batch)])
+        say(f"[{tag}] {name} ATE vs ground truth over {len(k_outs)} frames: "
+            f"max {ate.max():.4f} m, median {np.median(ate):.4f} m, per "
+            f"stream {np.round(ate, 4).tolist()}")
+        if not (np.isfinite(ate).all() and ate.max() < 0.5):
+            fail(f"{tag}: {name} pose does not track the ground truth")
+
+
+def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
+                     batch):
+    """``step`` over the frames with the kernels (every kernel in
+    ``names`` must launch) and with every kernel's plain version (none may
+    launch). Returns (kernel outputs, kernel ms, plain outputs, plain ms,
+    launches, final kernel-run state, the kernel run's peak device memory
+    in bytes)."""
+    import torch
+    for mod in mods.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    k_outs, k_ms, st = run_frames(step, pipeline, cfg, frames, device, batch)
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = {name: mods[name].launches for name in KERNELS}
+    say(f"[{tag}] kernel launches over {len(frames)} frames: {launches}")
+    if min(launches[n] for n in names) < 1:
+        fail(f"a kernel of the {tag} path was never launched: {launches}")
+    with Patched([(mods[n], spec[1], getattr(mods[n], spec[2]))
+                  for n, spec in KERNELS.items()]):
+        p_outs, p_ms, _ = run_frames(step, pipeline, cfg, frames, device,
+                                     batch)
+    if any(mods[n].launches != launches[n] for n in KERNELS):
+        fail(f"the plain {tag} run launched a kernel")
+    return k_outs, k_ms, p_outs, p_ms, launches, st, peak
+
+
+def run_step(pipeline, mods, cfg, frames, gt, device, card):
+    """Phase 6: step_b with the kernels, with the plain versions, and a
+    staged kernel run. Returns (launches, the kernel run's final state)."""
+    from aloam_tpu_torch.pipeline import METRIC_NAMES
+
+    k_outs, k_ms, p_outs, p_ms, launches, st, peak = kernel_and_plain(
+        "step", pipeline.step_b, pipeline, mods, STEP_KERNELS, cfg, frames,
+        device, B)
+    pose_agreement("step", k_outs, p_outs, k_ms, p_ms, B)
     sk, sp = float(np.mean(k_ms[1:])), float(np.mean(p_ms[1:]))
     say(f"[step] frames 1-{len(frames) - 1}: kernels {sk:.2f} ms/frame = "
         f"{B * 1e3 / sk:.1f} scans/s; plain {sp:.2f} ms/frame = "
         f"{B * 1e3 / sp:.1f} scans/s; peak device memory "
         f"{peak / 2 ** 30:.3f} GiB (B={B}, {card})")
 
-    per_frame = stage_times(pipeline, cfg, frames, device)
-    med = {label: float(np.median(v[1:])) for label, v in per_frame.items()}
-    say(f"[step] device ms per frame by stage, CUDA events, median of frames "
-        f"1-{len(frames) - 1}: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in med.items()) + f" ({card})")
+    say_stages("step", stage_times(pipeline.step_b, STAGES, pipeline, cfg,
+                                   frames, device, B), card)
 
+    col = {n: i for i, n in enumerate(METRIC_NAMES)}
     last = k_outs[-1]["metrics"]
     say("[step] last-frame metrics (stream 0): "
         + json.dumps({n: float(last[0, i]) for n, i in col.items()}))
     if not last[:, col["map_solved"]].all():
         fail("mapping did not solve in every stream")
-    for name, key in (("odometry", "t_odom"), ("mapped", "t_map")):
-        est = np.stack([o[key] for o in k_outs], axis=1)          # (B, F, 3)
-        ate = np.array([ate_rmse(est[b], gt[b], align=False)
-                        for b in range(B)])
-        say(f"[step] {name} ATE vs ground truth over {len(frames)} frames: "
-            f"max {ate.max():.4f} m, median {np.median(ate):.4f} m, per "
-            f"stream {np.round(ate, 4).tolist()}")
-        if not (np.isfinite(ate).all() and ate.max() < 0.5):
-            fail(f"{name} pose does not track the ground truth")
+    ate_check("step", k_outs, gt, B)
+    return launches, st
+
+
+def run_single(pipeline, mods, cfg, frames, gt, device, card):
+    """Phase 8: the single-stream step with the kernels and with the plain
+    versions. Returns the launches of the kernel run."""
+    from aloam_tpu_torch.pipeline import METRIC_NAMES
+    k_outs, k_ms, p_outs, p_ms, launches, _, peak = kernel_and_plain(
+        "single", pipeline.step, pipeline, mods, SINGLE_KERNELS, cfg, frames,
+        device, 1)
+    pose_agreement("single", k_outs, p_outs, k_ms, p_ms, 1)
+    sk, sp = float(np.mean(k_ms[1:])), float(np.mean(p_ms[1:]))
+    say(f"[single] frames 1-{len(frames) - 1}: kernels {sk:.2f} ms/scan = "
+        f"{1e3 / sk:.1f} scans/s; plain {sp:.2f} ms/scan = "
+        f"{1e3 / sp:.1f} scans/s; peak device memory "
+        f"{peak / 2 ** 30:.3f} GiB (one HDL-64 stream, PRESETS['HDL-64'], "
+        f"{card})")
+    say_stages("single", stage_times(pipeline.step, SINGLE_STAGES, pipeline,
+                                     cfg, frames, device, 1), card)
+    last = dict(zip(METRIC_NAMES, k_outs[-1]["metrics"].tolist()))
+    say("[single] last-frame metrics: " + json.dumps(last))
+    if last["map_solved"] != 1:
+        fail("single-stream mapping did not solve")
+    ate_check("single", k_outs, gt[None], 1)
     return launches
+
+
+def run_cli(device, card):
+    """Phase 9: the CLI end to end on the card, and a resumed run."""
+    from aloam_tpu_torch import cli
+    with tempfile.TemporaryDirectory() as tmp:
+        out, res = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
+        base = ["--device", str(device), "--preset", "HDL-64", "--synthetic"]
+        t0 = time.perf_counter()
+        cli.main(base + ["--frames", "4", "--checkpoint-every", "2",
+                         "--out", out])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out, "eval.json")) as fh:
+            ev = json.load(fh)
+        with open(os.path.join(out, "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh]
+        if [r["frame"] for r in recs] != [0, 1, 2, 3] \
+                or recs[-1]["map_solved"] != 1:
+            fail(f"cli: metrics.jsonl {recs}")
+        if not (ev["frames"] == 4 and 0 <= ev["ate_rmse_m"] < 0.5):
+            fail(f"cli: eval.json {ev}")
+        cli.main(base + ["--frames", "4", "--skip-first", "2", "--resume",
+                         os.path.join(out, "state_000002.npz"), "--out",
+                         res])
+        with np.load(os.path.join(out, "trajectory.npz")) as a, \
+                np.load(os.path.join(res, "trajectory.npz")) as b:
+            d = max(np.abs(b["t_map"][1] - a["t_map"][3]).max(),
+                    np.abs(b["q_map"][1] - a["q_map"][3]).max())
+        say(f"[cli] 4 frames in {wall:.1f} s, ATE {ev['ate_rmse_m']:.4f} m, "
+            f"median {ev['median_wall_ms']:.1f} ms/scan; resumed from "
+            f"state_000002.npz: frame 3 pose max |diff| {d:.3g} ({card})")
+        if d > 1e-6:
+            fail("cli: the resumed run does not reach the same frame 3 pose")
 
 
 def main() -> None:
@@ -465,6 +671,7 @@ def main() -> None:
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is False")
+    from aloam_tpu.config import PRESETS
     from aloam_tpu_torch import pipeline
     from aloam_tpu_torch.ops import _build
 
@@ -507,7 +714,26 @@ def main() -> None:
             for name, spec in KERNELS.items()}
     results = check_kernels(pipeline, mods, cfg, frames, device, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
-    launches = run_step(pipeline, mods, cfg, frames, gt, device, card)
+    launches, st_b = run_step(pipeline, mods, cfg, frames, gt, device, card)
+
+    # ---- 7-9. knn_select, the single-stream step, the CLI ----------------
+    cfg_1 = PRESETS["HDL-64"]
+    t0 = time.perf_counter()
+    sx, sm, sgt = make_single(cfg_1)
+    single = [(torch.from_numpy(sx[f]).to(device),
+               torch.from_numpy(sm[f]).to(device)) for f in range(N_FRAMES)]
+    say(f"[data] single stream: seed {SINGLE_SEED}, {SINGLE_SPEED:g} m/s, "
+        f"{N_FRAMES} frames, {int(sm.sum(axis=1).mean())} points/scan, "
+        f"PRESETS['HDL-64'] (n_raw {cfg_1.n_raw}, ring_cap "
+        f"{cfg_1.ring_cap}, less_flat_cap {cfg_1.less_flat_cap}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check_knn(pipeline, mods, cfg, st_b.map, st_b.odom, cfg_1, single,
+              device, results, card)
+    del st_b
+    single_launches = run_single(pipeline, mods, cfg_1, single, sgt, device,
+                                 card)
+    launches["knn_select"] = single_launches["knn_select"]
+    run_cli(device, card)
 
     kernels = [dict(name=name, route="cuda", source=spec[3],
                     replaces=spec[4], launches=launches[name],

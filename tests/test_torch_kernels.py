@@ -32,6 +32,7 @@ from aloam_tpu_torch.frontend.voxel import _voxel_core
 from aloam_tpu_torch.neighbors import odom_window_mins_b
 from aloam_tpu_torch.ops import assoc as assoc_op
 from aloam_tpu_torch.ops import insert as insert_op
+from aloam_tpu_torch.ops import knn as knn_op
 from aloam_tpu_torch.ops import lm as lm_op
 from aloam_tpu_torch.ops import odom as odom_op
 from aloam_tpu_torch.ops import select as select_op
@@ -381,9 +382,13 @@ def test_wrappers_refuse_non_cuda_devices():
             *(torch.empty(1, 4, 16, **meta) for _ in range(4)),
             torch.empty(1, 4, 16, **i32), torch.empty(1, 4, **i32),
             torch.empty(1, 3, **i32), torch.empty(3, **i32), 2.0, 0.4)
+    with pytest.raises(ValueError):
+        knn_op.knn_select(torch.empty(300, 768, **meta),
+                          torch.empty(256, dtype=torch.int32, **meta),
+                          torch.empty(256, 4, **meta), 5)
     assert seg_op.launches == select_op.launches == 0
     assert odom_op.launches == lm_op.launches == 0
-    assert assoc_op.launches == insert_op.launches == 0
+    assert assoc_op.launches == insert_op.launches == knn_op.launches == 0
 
 
 def test_build_key_follows_sources(tmp_path, monkeypatch):
@@ -399,13 +404,19 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     names = [s.name for s in _build.sources()]
-    assert names == sorted(["assoc.cu", "errors.cu", "insert.cu", "lm.cu",
-                            "odom_window.cu", "seg_scan.cu", "select.cu"])
+    assert names == sorted(["assoc.cu", "errors.cu", "insert.cu", "knn.cu",
+                            "lm.cu", "odom_window.cu", "seg_scan.cu",
+                            "select.cu"])
     before = _build.library_path()
     assert before == _build.library_path()
     with open(csrc / "lm.cu", "a") as fh:
         fh.write("\n// edited\n")
-    assert _build.library_path() != before
+    edited = _build.library_path()
+    assert edited != before
+    # a shared header is part of the key too
+    with open(csrc / "knn_select.cuh", "a") as fh:
+        fh.write("\n// edited\n")
+    assert _build.library_path() != edited
 
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)

@@ -209,8 +209,9 @@ def test_front_step_b_matches_jax_chain(scene, jax_fns):
 
 def test_port_runs_without_jax():
     """The card's machine has no JAX: the port must import and run one
-    front step and one whole step (mapping included) with ``jax``
-    unimportable."""
+    front step, one whole batched step and one single-stream step
+    (mapping included), and import its CLI and checkpoint modules, with
+    ``jax`` unimportable."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -233,6 +234,13 @@ def test_port_runs_without_jax():
                                   torch.from_numpy(mask)[None], cfg)
         assert out.q_map.shape == (1, 4) and st.frame == 2
         assert out.metrics.shape == (1, len(pipeline.METRIC_NAMES))
+        st = pipeline.init_state(cfg, 1, "cpu")
+        st, out = pipeline.step(st, torch.from_numpy(xyz),
+                                torch.from_numpy(mask), cfg)
+        assert out.q_map.shape == (4,) and st.frame == 1
+        from aloam_tpu_torch import cli
+        from aloam_tpu_torch.utils import checkpoint
+        assert cli.build_parser().parse_args([]).device == "cuda"
         assert sys.modules["jax"] is None
         print("ok")
     """)
