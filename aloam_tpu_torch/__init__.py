@@ -2,10 +2,12 @@
 
 The JAX package ``aloam_tpu`` is the reference; every module here has one
 counterpart there, and the tests hold each against it. The port imports
-``torch`` and numpy, never ``jax``. It reuses the JAX package's
-framework-free modules as they are: ``aloam_tpu.config`` (``AloamConfig``,
-``PRESETS``), ``aloam_tpu.io``, ``aloam_tpu.eval``,
-``aloam_tpu.utils.tictoc`` and the JAX CLI's argument parser.
+only ``torch``, numpy and its own modules: never ``jax`` and nothing of
+``aloam_tpu``. What it shares with the JAX package in content, it keeps as
+its own copy: ``config`` (``AloamConfig``, ``PRESETS``), ``io`` (the
+synthetic scenes, the KITTI reader and the native loader, whose C++ source
+is ``native/kitti_loader.cpp``), ``eval`` (ATE, RPE, drift, plots),
+``utils/tictoc.py`` and the CLI's flags.
 
 Every Pallas kernel on the ported path is a hand-written CUDA C++ kernel
 under ``csrc/``, built for ``sm_90a`` at first use (``ops/_build.py``).
@@ -19,4 +21,4 @@ reference's exact per-round map search (``pipeline.step``), its
 checkpoints (``utils/checkpoint.py``) and the CLI (``cli.py``).
 """
 
-from aloam_tpu.config import AloamConfig, PRESETS  # noqa: F401
+from aloam_tpu_torch.config import AloamConfig, PRESETS  # noqa: F401

@@ -17,18 +17,48 @@ Examples:
 
 from __future__ import annotations
 
+import argparse
 import itertools
 import json
 import os
 
-# the JAX package's parser (a framework-free module at import): the same
-# flags, so a command line moves between the two packages unchanged
-from aloam_tpu.cli import build_parser as _jax_parser
 
-
-def build_parser():
-    p = _jax_parser()
-    p.description = __doc__
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags, choices and defaults (``aloam_tpu/cli.py``), so
+    a command line moves between the two packages unchanged, plus
+    ``--device``."""
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--preset", default="HDL-64",
+                   choices=["VLP-16", "HDL-32", "HDL-64"])
+    p.add_argument("--kitti", help="KITTI dataset folder (kittiHelper layout)")
+    p.add_argument("--sequence", default="00")
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic street-canyon sequence instead of KITTI")
+    p.add_argument("--frames", type=int, default=100)
+    p.add_argument("--speed", type=float, default=10.0,
+                   help="synthetic vehicle speed [m/s]")
+    p.add_argument("--out", default="out_run", help="output directory")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save the SLAM state every K frames")
+    p.add_argument("--resume", help="checkpoint .npz to resume from")
+    p.add_argument("--plots", action="store_true",
+                   help="write trajectory/map PNGs at the end")
+    p.add_argument("--mapping-skip-frame", type=int, default=None)
+    p.add_argument("--skip-first", type=int, default=0,
+                   help="discard the first N scans (the reference's "
+                        "systemDelay, scanRegistration.cpp:62)")
+    p.add_argument("--surround-every", type=int, default=0, metavar="K",
+                   help="write the local-neighborhood map cloud every K "
+                        "frames (the /laser_cloud_surround 5-frame cadence, "
+                        "laserMapping.cpp:806-821)")
+    p.add_argument("--map-every", type=int, default=0, metavar="K",
+                   help="write the full map cloud every K frames (the "
+                        "/laser_cloud_map 20-frame cadence, "
+                        "laserMapping.cpp:823-836)")
+    p.add_argument("--dump-rings", type=int, default=None, metavar="FRAME",
+                   help="write per-ring debug clouds of the given frame to "
+                        "rings_FRAME.npz (the PUB_EACH_LINE channel, "
+                        "scanRegistration.cpp:444-454)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels; needs a card) or "
                         "cpu (their plain versions)")
@@ -41,10 +71,10 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from aloam_tpu.config import PRESETS
-    from aloam_tpu.eval.ate import ate_rmse, kitti_drift, rpe, rpe_rot
-    from aloam_tpu.io import synthetic as syn
-    from aloam_tpu.utils.tictoc import TicToc
+    from aloam_tpu_torch.config import PRESETS
+    from aloam_tpu_torch.eval.ate import ate_rmse, kitti_drift, rpe, rpe_rot
+    from aloam_tpu_torch.io import synthetic as syn
+    from aloam_tpu_torch.utils.tictoc import TicToc
     from aloam_tpu_torch import mapping as mp
     from aloam_tpu_torch import pipeline
     from aloam_tpu_torch.utils import checkpoint as ckpt
@@ -71,7 +101,7 @@ def main(argv=None):
         gt_t = traj.trans[args.skip_first:] - traj.trans[args.skip_first]
         gt_q = traj.quats[args.skip_first:]
     else:
-        from aloam_tpu.io import kitti, native_loader
+        from aloam_tpu_torch.io import kitti, native_loader
         times_path, gt_path, velo_dir = kitti.sequence_paths(args.kitti,
                                                              args.sequence)
         if gt_path and os.path.exists(gt_path):
@@ -211,7 +241,7 @@ def main(argv=None):
         print(msg)
 
     if args.plots:
-        from aloam_tpu.eval import viz
+        from aloam_tpu_torch.eval import viz
         paths = {"mapped": tm[:, :3], "odometry": np.stack(traj_odom)}
         if gt_t is not None:
             paths["ground truth"] = gt_t[:n]

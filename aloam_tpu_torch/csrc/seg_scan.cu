@@ -5,95 +5,290 @@
 //
 // Semantics: for each channel k and row r,
 //   out[k, r, j] = vals[k, r, j] + (heads[r, j] ? 0 : out[k, r, j-1]),
-// combined in the same reset-at-head Hillis-Steele form as the TPU kernel,
-// so sums stay inside their segment (f32 summation order differs).
+// so sums stay inside their segment (the f32 summation order differs from
+// a running sum: the tolerance is |k - p| <= 1e-5 + 1e-6 |p|, and a count
+// channel of 0/1 values stays exact).
 //
 // What bounds it on an H100: device-memory bytes. Each element is read
-// once per channel and written once per channel; there is one add per
-// element and step. Design: one warp per row walks the row in 32-element
-// chunks. Each lane loads one element per channel, so a warp's loads
-// are 128-byte coalesced. A 5-step shuffle ladder scans the chunk, and
-// lane 31's value carries the open segment into the next chunk, so rows
-// of any length (the mapping call sites reach N = 40960) need no tiling.
-// Nothing is staged in shared memory.
+// once per channel and written once per channel, and its head byte read
+// once: (2 K + 1/4) x 4 bytes per element, one add per element and step.
+//
+// Design: long rows are split across blocks in tiles of 256 x E elements
+// (E = 4 or 8 per thread, picked by the wrapper so that few rows still
+// fill the card), in three phases and two launches.
+//   1. seg_tile_kernel, one block per (tile, row): each thread scans its
+//      E elements (16-byte loads of vals and 4-byte loads of heads where
+//      the row length is a multiple of 4), a shuffle ladder scans the
+//      thread sums of each warp, and every warp adds the carry of the
+//      warps before it from shared memory. It writes the tile-local
+//      result, and, for a row of several tiles, the tile's aggregate:
+//      the local sum at its last element per channel and the position of
+//      its first head.
+//   2. seg_carry_kernel, one block per (tile >= 1, row): one warp walks
+//      the aggregates of the tiles before this one, 32 at a time, back to
+//      the nearest tile with a head (the segmented exclusive scan of the
+//      aggregates, which mostly ends at the previous tile) and
+//   3. adds that carry to the elements before the tile's first head.
+// A row of one tile (the per-ring rows of the feature stage) needs phase
+// 1 only.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int K>
-__global__ void seg_scan_kernel(const float* __restrict__ vals,
-                                const uint8_t* __restrict__ heads,
-                                float* __restrict__ out, int rows, int n) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
+template <int K, int E>
+__global__ void __launch_bounds__(kThreads)
+    seg_tile_kernel(const float* __restrict__ vals,
+                    const uint8_t* __restrict__ heads,
+                    float* __restrict__ out, float* __restrict__ agg,
+                    int* __restrict__ meta, int rows, int n, int tiles,
+                    int vec) {
+  constexpr int T = kThreads * E;
+  __shared__ float s_wv[kWarps][K];
+  __shared__ int s_wf[kWarps];
+  __shared__ int s_fh[kWarps];
+  const int r = blockIdx.y, t = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t plane = (size_t)rows * n;
-  const size_t base = (size_t)row * n;
-  float carry[K];
-#pragma unroll
-  for (int c = 0; c < K; ++c) carry[c] = 0.f;
+  const size_t row0 = (size_t)r * n;
+  const int j0 = t * T + threadIdx.x * E;
 
-  for (int start = 0; start < n; start += 32) {
-    const int j = start + lane;
-    const bool in = j < n;
-    // lanes past the row end act as heads with value 0: they never feed
-    // an in-range lane, which only reads lanes below it
-    int f = in ? (heads[base + j] != 0) : 1;
-    float v[K];
+  // elements past the row end act as value 0 without a head: they leave
+  // the sums of the last segment as they are
+  float v[K][E];
+  bool f[E];
+  if (vec) {
 #pragma unroll
-    for (int c = 0; c < K; ++c) v[c] = in ? vals[c * plane + base + j] : 0.f;
+    for (int i = 0; i < E / 4; ++i) {
+      const int j = j0 + 4 * i;
+      const bool in = j < n;
+      const uint32_t h =
+          in ? *reinterpret_cast<const uint32_t*>(heads + row0 + j) : 0u;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int f_up = __shfl_up_sync(kFull, f, d);
+      for (int u = 0; u < 4; ++u) f[4 * i + u] = (h >> (8 * u)) & 0xffu;
 #pragma unroll
       for (int c = 0; c < K; ++c) {
-        const float v_up = __shfl_up_sync(kFull, v[c], d);
-        if (lane >= d && !f) v[c] += v_up;
+        const float4 x =
+            in ? *reinterpret_cast<const float4*>(vals + c * plane + row0 + j)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+        v[c][4 * i] = x.x;
+        v[c][4 * i + 1] = x.y;
+        v[c][4 * i + 2] = x.z;
+        v[c][4 * i + 3] = x.w;
       }
-      if (lane >= d) f |= f_up;
     }
-    // f is now the OR of heads up to this lane: lanes with none continue
-    // the previous chunk's open segment
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int j = j0 + e;
+      const bool in = j < n;
+      f[e] = in && heads[row0 + j] != 0;
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        v[c][e] = in ? vals[c * plane + row0 + j] : 0.f;
+    }
+  }
+
+  // the thread's own elements
+  int fh = E;  // first head among them, E if none
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (f[e]) {
+      if (fh == E) fh = e;
+    } else if (e > 0) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) v[c][e] += v[c][e - 1];
+    }
+  }
+
+  // inclusive segmented scan of the thread sums across the warp
+  float tv[K];
+  int tf = fh < E;
+#pragma unroll
+  for (int c = 0; c < K; ++c) tv[c] = v[c][E - 1];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int uf = __shfl_up_sync(kFull, tf, d);
 #pragma unroll
     for (int c = 0; c < K; ++c) {
-      if (!f) v[c] += carry[c];
-      if (in) out[c * plane + base + j] = v[c];
-      carry[c] = __shfl_sync(kFull, v[c], 31);
+      const float uv = __shfl_up_sync(kFull, tv[c], d);
+      if (lane >= d && !tf) tv[c] += uv;
     }
+    if (lane >= d) tf |= uf;
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) s_wv[warp][c] = tv[c];
+    s_wf[warp] = tf;
+  }
+  const int pos = fh < E ? threadIdx.x * E + fh : T;
+  const int wmin = __reduce_min_sync(kFull, pos);
+  if (lane == 0) s_fh[warp] = wmin;
+  // the exclusive value of this lane within its warp
+  const int uf = __shfl_up_sync(kFull, tf, 1);
+  const int ef = lane ? uf : 0;
+  float tc[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const float up = __shfl_up_sync(kFull, tv[c], 1);
+    tc[c] = lane ? up : 0.f;
+  }
+  __syncthreads();
+
+  if (!ef) {  // no head before this lane in its warp: the warps before it
+    float cw[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) cw[c] = 0.f;
+    for (int w = 0; w < warp; ++w) {
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        cw[c] = s_wf[w] ? s_wv[w][c] : cw[c] + s_wv[w][c];
+    }
+#pragma unroll
+    for (int c = 0; c < K; ++c) tc[c] += cw[c];
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (e < fh) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) v[c][e] += tc[c];
+    }
+  }
+
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < E / 4; ++i) {
+      const int j = j0 + 4 * i;
+      if (j < n) {
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+          *reinterpret_cast<float4*>(out + c * plane + row0 + j) =
+              make_float4(v[c][4 * i], v[c][4 * i + 1], v[c][4 * i + 2],
+                          v[c][4 * i + 3]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (j0 + e < n) {
+#pragma unroll
+        for (int c = 0; c < K; ++c) out[c * plane + row0 + j0 + e] = v[c][e];
+      }
+    }
+  }
+
+  // the tile's aggregate: the tile-local sum at its last element, and
+  // where its first head is (T if it has none)
+  if (tiles > 1 && threadIdx.x == kThreads - 1) {
+    const size_t a = (size_t)r * tiles + t;
+#pragma unroll
+    for (int c = 0; c < K; ++c) agg[a * K + c] = v[c][E - 1];
+    int first = T;
+    for (int w = 0; w < kWarps; ++w) first = min(first, s_fh[w]);
+    meta[a] = first;
   }
 }
 
 template <int K>
-void launch(const float* vals, const uint8_t* heads, float* out, int rows,
-            int n, cudaStream_t stream) {
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  seg_scan_kernel<K><<<blocks, 32 * kWarpsPerBlock, 0, stream>>>(vals, heads, out, rows, n);
+__global__ void __launch_bounds__(kThreads)
+    seg_carry_kernel(float* __restrict__ out, const float* __restrict__ agg,
+                     const int* __restrict__ meta, int rows, int n, int tiles,
+                     int tile_len) {
+  __shared__ float s_carry[K];
+  const int r = blockIdx.y, t = blockIdx.x + 1;
+  const size_t row_tiles = (size_t)r * tiles;
+  const int len = min(meta[row_tiles + t], n - t * tile_len);
+  if (len <= 0) return;  // the tile starts with a head
+
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float carry[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) carry[c] = 0.f;
+    for (int base = t - 1; base >= 0; base -= 32) {
+      // lane l looks at tile base - l; lanes before the row start stop
+      const int j = base - lane;
+      const bool valid = j >= 0;
+      const bool has = valid ? meta[row_tiles + j] < tile_len : true;
+      const unsigned ballot = __ballot_sync(kFull, has);
+      const int stop = ballot ? __ffs(ballot) - 1 : 32;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        float x = valid && lane <= stop ? agg[(row_tiles + j) * K + c] : 0.f;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          x += __shfl_xor_sync(kFull, x, off);
+        carry[c] += x;
+      }
+      if (ballot) break;
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) s_carry[c] = carry[c];
+    }
+  }
+  __syncthreads();
+
+  const size_t plane = (size_t)rows * n;
+  const size_t base = (size_t)r * n + (size_t)t * tile_len;
+  for (int j = threadIdx.x; j < len; j += kThreads) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) out[c * plane + base + j] += s_carry[c];
+  }
+}
+
+template <int K>
+int launch(const float* vals, const uint8_t* heads, float* out, float* agg,
+           int* meta, int rows, int n, int e, int tiles, int vec,
+           cudaStream_t stream) {
+  const dim3 grid(tiles, rows);
+  if (e == 4) {
+    seg_tile_kernel<K, 4><<<grid, kThreads, 0, stream>>>(
+        vals, heads, out, agg, meta, rows, n, tiles, vec);
+  } else if (e == 8) {
+    seg_tile_kernel<K, 8><<<grid, kThreads, 0, stream>>>(
+        vals, heads, out, agg, meta, rows, n, tiles, vec);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || tiles == 1) return static_cast<int>(err);
+  seg_carry_kernel<K><<<dim3(tiles - 1, rows), kThreads, 0, stream>>>(
+      out, agg, meta, rows, n, tiles, kThreads * e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // vals (n_chan, rows, n) f32, heads (rows, n) u8, out (n_chan, rows, n)
-// f32, all contiguous. Returns the cudaError_t of the launch.
+// f32, all contiguous; agg (rows, tiles, n_chan) f32 and meta (rows,
+// tiles) i32 scratch, read only when tiles > 1. e in {4, 8} elements per
+// thread, tiles = ceil(n / (256 e)); vec = 1 allows 16-byte loads (n a
+// multiple of 4, vals 16-byte and heads 4-byte aligned). Returns the
+// cudaError_t of the launches.
 extern "C" int aloam_seg_scan(const float* vals, const uint8_t* heads,
-                              float* out, int n_chan, int rows, int n,
+                              float* out, float* agg, int* meta, int n_chan,
+                              int rows, int n, int e, int tiles, int vec,
                               void* stream) {
   if (rows <= 0 || n <= 0) return 0;
+  if (rows > 65535 || tiles <= 0 || (long long)tiles * kThreads * e < n ||
+      (long long)(tiles - 1) * kThreads * e >= n)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_chan) {
-    case 1: launch<1>(vals, heads, out, rows, n, s); break;
-    case 2: launch<2>(vals, heads, out, rows, n, s); break;
-    case 3: launch<3>(vals, heads, out, rows, n, s); break;
-    case 4: launch<4>(vals, heads, out, rows, n, s); break;
-    case 5: launch<5>(vals, heads, out, rows, n, s); break;
-    case 6: launch<6>(vals, heads, out, rows, n, s); break;
-    case 7: launch<7>(vals, heads, out, rows, n, s); break;
-    case 8: launch<8>(vals, heads, out, rows, n, s); break;
+    case 1: return launch<1>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
+    case 2: return launch<2>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
+    case 3: return launch<3>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
+    case 4: return launch<4>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
+    case 5: return launch<5>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
+    case 6: return launch<6>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
+    case 7: return launch<7>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
+    case 8: return launch<8>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

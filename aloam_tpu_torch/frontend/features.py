@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from aloam_tpu.config import AloamConfig
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend.voxel import voxel_downsample_rings
 from aloam_tpu_torch.ops import select as select_op
 from aloam_tpu_torch.types import PointCloud, RingCloud, ScanFeatures

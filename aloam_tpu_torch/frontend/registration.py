@@ -15,7 +15,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from aloam_tpu.config import AloamConfig
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.types import RingCloud
 from aloam_tpu_torch.utils.batch import bgather
 

@@ -27,9 +27,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from aloam_tpu.config import AloamConfig
 from aloam_tpu_torch import geometry as geo
 from aloam_tpu_torch import solver
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend.voxel import voxel_downsample_masked_b
 from aloam_tpu_torch.ops import assoc as assoc_op
 from aloam_tpu_torch.ops import gridmap

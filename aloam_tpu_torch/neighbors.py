@@ -18,7 +18,8 @@ _POISON = 1e9
 
 def odom_window_mins_b(sel: torch.Tensor, ref: torch.Tensor,
                        ref_mask: torch.Tensor, ref_ring: torch.Tensor,
-                       nearby_scan: int, want_same_ring: bool):
+                       nearby_scan: int, want_same_ring: bool,
+                       ring_seg: int = 0):
     """sel (B, Q, 3) queries; ref (B, M, 3) with ref_mask (B, M) and integer
     ref_ring (B, M).
 
@@ -26,6 +27,10 @@ def odom_window_mins_b(sel: torch.Tensor, ref: torch.Tensor,
     the minima over the different-ring window 1 ≤ |Δring| ≤ nearby_scan
     (:312-361) and, with ``want_same_ring``, over the NN's own ring without
     the NN itself (minPointInd2, :402-428). Ties go to the lowest index.
+    ``ring_seg`` > 0 declares the reference ring-segmented (ring r in rows
+    [r·ring_seg, (r+1)·ring_seg), a ``features.ring_heads`` output), so
+    pass 2 scans only the rows of the neighbour's ring window; the outputs
+    do not change.
     Returns (d2_nn, nn, d2_diff, idx_diff[, d2_same, idx_same]).
 
     Both sets are recentred on the query mean before the kernel (smaller
@@ -39,5 +44,5 @@ def odom_window_mins_b(sel: torch.Tensor, ref: torch.Tensor,
          torch.where(ref_mask, ref_ring.to(torch.float32), _POISON)[:, None]],
         dim=1).contiguous()
     outs = odom_op.window_mins((sel - center).contiguous(), ref_p,
-                               float(nearby_scan), want_same_ring)
+                               float(nearby_scan), want_same_ring, ring_seg)
     return outs if want_same_ring else outs[:4]

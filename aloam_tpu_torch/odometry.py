@@ -15,9 +15,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from aloam_tpu.config import AloamConfig
 from aloam_tpu_torch import geometry as geo
 from aloam_tpu_torch import solver
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.neighbors import odom_window_mins_b
 from aloam_tpu_torch.types import PointCloud, ScanFeatures
 from aloam_tpu_torch.utils.batch import bgather
@@ -81,15 +81,29 @@ def _transform_to_start_b(q, t, pts):
     return geo.qrot(q[:, None, :], pts) + t[:, None, :]
 
 
+def _frontend_ring_seg(last: PointCloud, seg: int, cfg: AloamConfig) -> int:
+    """The ring-segment stride of a handoff cloud (``OdomState.corner_last``
+    / ``surf_last``). Those are always ``features.ring_heads`` outputs: ring
+    r's points live in rows [r·seg, (r+1)·seg) and the tail rows are
+    padding (mask False, poisoned in the search). Any other cloud must be
+    searched with ring_seg = 0."""
+    if last.capacity < cfg.scan_lines * seg:
+        raise ValueError(f"a handoff cloud of {last.capacity} rows cannot "
+                         f"hold {cfg.scan_lines} rings of {seg}")
+    return seg
+
+
 def edge_correspondences_b(sharp: PointCloud, last: PointCloud, q, t,
-                           cfg: AloamConfig) -> solver.EdgeFactors:
+                           cfg: AloamConfig,
+                           ring_seg: int = 0) -> solver.EdgeFactors:
     """Corner correspondences (laserOdometry.cpp:299-384): the 1-NN gated
     at 25 m², plus the closest point on a different ring within ±2 rings
-    (±NEARBY_SCAN = 2.5 on integer ring IDs), gated at 25 m²."""
+    (±NEARBY_SCAN = 2.5 on integer ring IDs), gated at 25 m². ``ring_seg``
+    > 0 declares ``last`` ring-segmented (neighbors.odom_window_mins_b)."""
     sel = _transform_to_start_b(q, t, sharp.xyz)
     d2_nn, nn, d2_diff, idx2 = odom_window_mins_b(
         sel, last.xyz, last.mask, last.ring(), int(cfg.nearby_scan),
-        want_same_ring=False)
+        want_same_ring=False, ring_seg=ring_seg)
     valid = sharp.mask & (d2_nn < cfg.dist_sq_threshold) \
         & (d2_diff < cfg.dist_sq_threshold)
     return solver.EdgeFactors(p=sharp.xyz, a=bgather(last.xyz, nn),
@@ -97,16 +111,18 @@ def edge_correspondences_b(sharp: PointCloud, last: PointCloud, q, t,
 
 
 def plane_correspondences_b(flat: PointCloud, last: PointCloud, q, t,
-                            cfg: AloamConfig) -> solver.PlaneFactors:
+                            cfg: AloamConfig,
+                            ring_seg: int = 0) -> solver.PlaneFactors:
     """Surf correspondences (laserOdometry.cpp:387-483): the 1-NN gated at
     25 m², the closest same-ring point (minPointInd2) and the closest point
     within ±2 other rings (minPointInd3), both gated at 25 m²; the plane
     normal is (j−l)×(j−m) normalized (lidarFactor.hpp:64-65), and
-    collinear triples are dropped."""
+    collinear triples are dropped. ``ring_seg`` as in
+    edge_correspondences_b."""
     sel = _transform_to_start_b(q, t, flat.xyz)
     d2_nn, nn, val3, idx3, val2, idx2 = odom_window_mins_b(
         sel, last.xyz, last.mask, last.ring(), int(cfg.nearby_scan),
-        want_same_ring=True)
+        want_same_ring=True, ring_seg=ring_seg)
     valid = flat.mask & (d2_nn < cfg.dist_sq_threshold) \
         & (val2 < cfg.dist_sq_threshold) & (val3 < cfg.dist_sq_threshold)
     a = bgather(last.xyz, nn)
@@ -129,11 +145,18 @@ def odometry_step_b(state: OdomState, feats: ScanFeatures,
                                   "is not ported")
     q, t = state.q_lc, state.t_lc
     metrics = degen = None
+    # the handoff clouds are ring_heads outputs (set below from
+    # feats.less_sharp / less_flat), so the search may skip by ring
+    seg_e = _frontend_ring_seg(state.corner_last,
+                               cfg.n_regions * cfg.max_less_sharp, cfg)
+    seg_p = _frontend_ring_seg(
+        state.surf_last,
+        min(cfg.ring_cap, cfg.less_flat_cap // cfg.scan_lines), cfg)
     for _ in range(cfg.odom_outer_rounds):
         edges = edge_correspondences_b(feats.sharp, state.corner_last, q, t,
-                                       cfg)
+                                       cfg, ring_seg=seg_e)
         planes = plane_correspondences_b(feats.flat, state.surf_last, q, t,
-                                         cfg)
+                                         cfg, ring_seg=seg_p)
         q, t, stats = solver.lm_solve_b(edges, planes, q, t,
                                         cfg.odom_lm_iters, cfg.huber_delta)
         d = stats.clamped + stats.nonfinite

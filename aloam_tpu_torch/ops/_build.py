@@ -37,10 +37,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: (name, argument types); every function returns int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "aloam_seg_scan": (_P, _P, _P, _I, _I, _I, _P),
+    "aloam_seg_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "aloam_select_rings": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                            _P),
-    "aloam_odom_window": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "aloam_odom_window": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _I, _I, _I,
+                                      _P),
     "aloam_lm_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     "aloam_assoc_cell": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                          _F, _P),
@@ -139,6 +140,13 @@ def require_cuda(name: str, *tensors, dtypes) -> None:
             raise ValueError(f"{name}: expected {dt}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (launch plans size their
+    grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(c_name: str, device: torch.device, *args) -> None:

@@ -1,11 +1,12 @@
 """Segmented prefix sums for the voxel downsample (kernel module).
 
 Port of ``aloam_tpu/ops/pallas_voxel.py:segmented_prefix_sums``. The CUDA
-kernel is ``csrc/seg_scan.cu`` (one warp per row, a shuffle ladder per
-32-element chunk, the open segment carried across chunks). The plain
-version beside it is a float64 running sum with the sum before each
-segment's head subtracted, which resets at heads without cancellation
-error.
+kernel is ``csrc/seg_scan.cu``: rows are cut into tiles of 256·E elements,
+one block per tile scans its tile and records the tile's aggregate, and a
+second launch carries each open segment into the tiles after it
+(:func:`launch_plan` picks E and the tile count). The plain version beside
+it is a float64 running sum with the sum before each segment's head
+subtracted, which resets at heads without cancellation error.
 """
 
 from __future__ import annotations
@@ -31,6 +32,16 @@ def segmented_prefix_sums_plain(vals: torch.Tensor,
     return (total - start).to(vals.dtype)
 
 
+_THREADS = 256   # threads per tile block (csrc/seg_scan.cu)
+
+
+def launch_plan(rows: int, n: int, n_sm: int):
+    """(E, tiles): 8 elements per thread unless that leaves fewer than two
+    tile blocks per SM, then 4; tiles = ceil(n / (256 E)) per row."""
+    e = 8 if rows * -(-n // (_THREADS * 8)) >= 2 * n_sm else 4
+    return e, -(-n // (_THREADS * e))
+
+
 def segmented_prefix_sums(vals: torch.Tensor,
                           heads: torch.Tensor) -> torch.Tensor:
     """Segmented inclusive prefix sums along the last axis.
@@ -47,9 +58,15 @@ def segmented_prefix_sums(vals: torch.Tensor,
     if tuple(heads.shape) != (r, n) or not 1 <= k <= 8:
         raise ValueError(f"segmented_prefix_sums: vals {tuple(vals.shape)}, "
                          f"heads {tuple(heads.shape)}")
+    e, tiles = launch_plan(r, n, _build.sm_count(vals.device))
+    vec = n % 4 == 0 and vals.data_ptr() % 16 == 0 \
+        and heads.data_ptr() % 4 == 0
     out = torch.empty_like(vals)
+    agg = torch.empty((r, tiles, k), dtype=torch.float32, device=vals.device)
+    meta = torch.empty((r, tiles), dtype=torch.int32, device=vals.device)
     _build.launch("aloam_seg_scan", vals.device, vals.data_ptr(),
-                  heads.data_ptr(), out.data_ptr(), k, r, n)
+                  heads.data_ptr(), out.data_ptr(), agg.data_ptr(),
+                  meta.data_ptr(), k, r, n, e, tiles, int(vec))
     global launches
     launches += 1
     return out

@@ -23,10 +23,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from aloam_tpu.config import AloamConfig
 from aloam_tpu_torch import geometry as geo
 from aloam_tpu_torch import mapping as mp
 from aloam_tpu_torch import odometry as od
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend import extract_features_b, register_scan_b
 
 METRIC_NAMES = (

@@ -5,10 +5,8 @@ toolkit (nvcc) and PyTorch built for CUDA:
 
     python3 chip_smoke.py
 
-It needs no JAX: of the JAX package it imports only the framework-free
-``aloam_tpu.config``, ``aloam_tpu.io.synthetic``, ``aloam_tpu.eval`` and
-``aloam_tpu.utils.tictoc`` (the last two through the port's CLI).
-Phases, each printing its own lines:
+It imports torch, numpy and the port (``aloam_tpu_torch``), and nothing
+of JAX or of the JAX package. Phases, each printing its own lines:
 
 1. device: the card's name and power limit (from nvidia-smi), torch and
    CUDA versions; TF32 off;
@@ -22,39 +20,55 @@ Phases, each printing its own lines:
    ``.bench_cache/``;
 4. kernels: each of step_b's six kernels against its plain PyTorch
    version on the card, on every distinct input shape the main path gave
-   it in frame 1 of ``step_b``, with the stated tolerance, and both timed
-   with CUDA events;
+   it in frame 1 of ``step_b``, with the stated tolerance, both timed
+   with CUDA events, beside the kernel's bound (the least time the card
+   could take for the same work, from the bytes and the operations these
+   inputs need); then ``window_mins`` and ``segmented_prefix_sums`` on
+   adversarial inputs (an all-poisoned reference, duplicate points,
+   queries on the first and last rings, with and without ``ring_seg``;
+   rows without heads across many tiles, heads only at tile boundaries,
+   a row length that is not a multiple of 4);
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
-   kernels (its four launch counters must rise) and with the plain
-   versions; per-frame odometry poses must agree;
+   kernels (its four launch counters must rise, and every odometry search
+   must declare ``ring_seg`` > 0) and with the plain versions; per-frame
+   odometry poses must agree;
 6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its six
-   launch counters must rise) and with the plain versions; map poses must
-   agree (tightly unless a gate flipped); a third kernel run times each
-   stage and mapping sub-stage with CUDA events; scans/s, peak device
+   launch counters must rise, ``ring_seg`` > 0 as in phase 5) and with
+   the plain versions; map poses must agree (tightly unless a gate
+   flipped); a third kernel run times each stage and mapping sub-stage
+   with CUDA events (its device span), a fourth under torch.profiler
+   gives each stage's device busy time and the device's idle share;
+   scans/s, peak device
    memory and the odometry and mapped ATE against the ground truth (must
    be < 0.5 m);
-7. knn: the ``knn_select`` kernel against its plain version (bit-equal)
-   and timed, at the inputs frame 1 of the single-stream step gave it and
-   at one B = 16 ``corner_associations_b`` / ``surf_associations_b`` call
-   on the map phase 6 left;
+7. single-stream kernels: each of the single-stream step's six kernels
+   against its plain version, timed and bounded as in phase 4, at the
+   inputs frame 1 of the single-stream step gave them, and
+   ``knn_select`` at one B = 16 ``corner_associations_b`` /
+   ``surf_associations_b`` call on the map phase 6 left;
 8. single: ``pipeline.step`` over the single-stream scene's 8 frames at
    ``PRESETS["HDL-64"]`` with the kernels (its six launch counters, knn
-   among them, must rise) and with the plain versions; map poses as in
-   phase 6; ms/scan, peak device memory, a staged kernel run as in phase
-   6, and the odometry and mapped ATE (< 0.5 m);
+   among them, must rise; ``ring_seg`` > 0) and with the plain versions;
+   map poses as in phase 6; ms/scan, peak device memory, a staged kernel
+   run as in phase 6, and the odometry and mapped ATE (< 0.5 m);
 9. cli: ``aloam_tpu_torch.cli.main`` over 4 synthetic HDL-64 frames with a
    checkpoint every 2, its eval.json and metrics.jsonl read back, and a
    run resumed from the frame-2 checkpoint must give frame 3's pose.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failed check exits
-non-zero before that line; so does a machine without a CUDA card.
+The second-to-last line is a JSON object with one entry per kernel (its
+launches on the main path, worst error, kernel, plain and bound ms at its
+largest input); the last line is ``{"ok": true, "device": {...}}``. Any
+failed check exits non-zero before that line; so does a machine without a
+CUDA card.
 """
 
 from __future__ import annotations
 
+import bisect
+import contextlib
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -107,6 +121,10 @@ FRONT_KERNELS = ("select_rings", "segmented_prefix_sums", "window_mins",
                  "lm_fused")
 STEP_KERNELS = FRONT_KERNELS + ("assoc_cell", "merge_tiles")
 SINGLE_KERNELS = FRONT_KERNELS + ("merge_tiles", "knn_select")
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM3
+# bytes/s and fp32 FLOP/s outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 # step_b's stages and mapping sub-stages, timed with CUDA events:
 # label -> (module, attribute called through it)
 STAGES = {
@@ -147,7 +165,7 @@ def say(msg: str) -> None:
 def bench_cfg():
     """bench.batched_bench_cfg() (bench.py imports JAX, so its fields are
     copied here)."""
-    from aloam_tpu.config import PRESETS
+    from aloam_tpu_torch.config import PRESETS
     return PRESETS["HDL-64"].replace(ring_cap=N_AZIMUTH + 56,
                                      n_raw=64 * N_AZIMUTH,
                                      less_flat_cap=36864, assoc_cspan=128,
@@ -160,7 +178,7 @@ def make_streams(cfg):
     if os.path.exists(CACHE):
         z = np.load(CACHE)
         return z["xyz"], z["mask"], z["gt"]
-    from aloam_tpu.io import synthetic as syn
+    from aloam_tpu_torch.io import synthetic as syn
     xyz = np.zeros((N_FRAMES, B, cfg.n_raw, 3), np.float32)
     mask = np.zeros((N_FRAMES, B, cfg.n_raw), bool)
     gt = np.zeros((B, N_FRAMES, 3), np.float32)
@@ -186,7 +204,7 @@ def make_single(cfg):
     if os.path.exists(SINGLE_CACHE):
         z = np.load(SINGLE_CACHE)
         return z["xyz"], z["mask"], z["gt"]
-    from aloam_tpu.io import synthetic as syn
+    from aloam_tpu_torch.io import synthetic as syn
     scans, traj = syn.make_sequence(N_FRAMES, scan_lines=64,
                                     n_azimuth=N_AZIMUTH, seed=SINGLE_SEED,
                                     speed=SINGLE_SPEED)
@@ -219,14 +237,19 @@ class Patched:
         self.saved.clear()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call, CUDA events around `reps` calls after
-    one warm-up call."""
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds per call, CUDA events around ``reps`` calls after
+    one warm-up call. With ``queued`` the calls wait behind a 10 ms sleep
+    kernel, so the host has launched them all before the first starts and
+    the time is the device's alone; without it a short kernel's time is
+    its wrapper's host launch cost."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -316,6 +339,61 @@ def compare(name, got, want, kind=None):
     return err
 
 
+def _nbytes(x) -> int:
+    import torch
+    if torch.is_tensor(x):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(_nbytes(y) for y in x)
+    return 0
+
+
+def window_rows(ref, idx_nn, nearby: float, ring_seg: int):
+    """(B, Q) rows that pass 2 of window_mins scans per query, chosen as
+    the kernel chooses them: the query's ring window when ``ring_seg`` > 0
+    and its nearest neighbour lies on a real ring, else all M."""
+    import torch
+    m = ref.shape[2]
+    br = ref[:, 3].gather(1, idx_nn.long())
+    if ring_seg <= 0:
+        return torch.full(br.shape, m, device=br.device)
+    real = (br >= 0) & (br < m // ring_seg) & (br == br.floor())
+    r = torch.where(real, br, 0.0).long()
+    nb = math.floor(nearby)
+    lo = ((r - nb) * ring_seg).clamp(0, m)
+    hi = ((r + nb + 1) * ring_seg).clamp(0, m)
+    return torch.where(real, hi - lo, m)
+
+
+def kernel_work(name, args, kw, out):
+    """(bytes, flops) a call must cost at least: every input read once and
+    every output written once; the arithmetic these inputs need, 8 flops
+    per d2 (window_mins: every (query, point) pair of pass 1 and the rows
+    each query's pass 2 scans; knn_select and assoc_cell: every candidate
+    of each query's row) and one add per element and channel of the
+    segmented scan. select_rings, lm_fused and merge_tiles count bytes
+    only: their arithmetic per byte is far below the card's balance."""
+    nbytes = _nbytes(list(args)) + _nbytes(list(kw.values())) + _nbytes(out)
+    flops = 0
+    if name == "window_mins":
+        sel, ref, nearby = args[0], args[1], args[2]
+        ring_seg = args[4] if len(args) > 4 else kw.get("ring_seg", 0)
+        pairs = sel.shape[0] * sel.shape[1] * ref.shape[2]
+        flops = 8 * (pairs + int(window_rows(ref, out[1], nearby,
+                                             ring_seg).sum()))
+    elif name == "segmented_prefix_sums":
+        flops = args[0].numel()
+    elif name in ("knn_select", "assoc_cell"):
+        flops = 8 * args[2].shape[0] * 8 * (args[0].shape[1] // 24)
+    return nbytes, flops
+
+
+def bound_of(nbytes: int, flops: int):
+    """(bound ms, what bounds it) against the card's published peaks."""
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
 def record_inputs(mods, names, drive):
     """Run ``drive()`` with each named kernel's wrapper recording its
     inputs, one record per distinct input signature. Returns {(name,
@@ -356,19 +434,26 @@ def check_recorded(mods, recorded, results, card):
         kern, plain = getattr(mod, spec[1]), getattr(mod, spec[2])
         got, want = kern(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
-        extra = [a for a in args if isinstance(a, (str, bool))]
-        err = compare(name, got, want, *extra[:1])
-        ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        extra = [a for a in args if isinstance(a, (str, bool, int))]
+        err = compare(name, got, want,
+                      *[a for a in extra if isinstance(a, str)])
+        nbytes, flops = kernel_work(name, args, kw, got)
+        bound_ms, bound_by = bound_of(nbytes, flops)
+        ms = cuda_ms(lambda: kern(*args, **kw), 20, queued=True)
+        b2b_ms = cuda_ms(lambda: kern(*args, **kw), 20)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 5)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         size = sum(a.numel() for a in args if torch.is_tensor(a))
         say(f"[kernel] {name}{extra if extra else ''}: inputs {shapes} "
-            f"max_abs_err {err:.3g} kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms ({card})")
+            f"max_abs_err {err:.3g} kernel {ms:.4f} ms (back to back "
+            f"{b2b_ms:.4f}) plain {plain_ms:.4f} ms bound {bound_ms:.4f} "
+            f"ms ({bound_by}: "
+            f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP) ({card})")
         prev = results.get(name)
         if prev is None or size > prev["size"]:
             results[name] = dict(max_abs_err=max(err, prev["max_abs_err"])
                                  if prev else err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
                                  size=size)
         else:
             prev["max_abs_err"] = max(err, prev["max_abs_err"])
@@ -387,12 +472,13 @@ def check_kernels(pipeline, mods, cfg, frames, device, card):
     return results
 
 
-def check_knn(pipeline, mods, cfg_b, map_state, odom_state, cfg_1, single,
-              device, results, card):
-    """Phase 7: knn_select at the inputs frame 1 of the single-stream step
-    gives it, and at one B = 16 corner_associations_b and
-    surf_associations_b call on ``map_state`` (phase 6's last map) with
-    the last frame's handoff clouds, downsampled to the stack caps."""
+def check_single_kernels(pipeline, mods, cfg_b, map_state, odom_state,
+                         cfg_1, single, device, results, card):
+    """Phase 7: the single-stream step's kernels at the inputs its frame 1
+    gives them, and knn_select at one B = 16 corner_associations_b and
+    surf_associations_b call on
+    ``map_state`` (phase 6's last map) with the last frame's handoff
+    clouds, downsampled to the stack caps."""
     import torch
     from aloam_tpu_torch import mapping as mp
     from aloam_tpu_torch.frontend.voxel import voxel_downsample_masked_b
@@ -400,8 +486,7 @@ def check_knn(pipeline, mods, cfg_b, map_state, odom_state, cfg_1, single,
     st = pipeline.init_state(cfg_1, 1, device)
     st, _ = pipeline.step(st, *single[0], cfg_1)
     recorded = record_inputs(
-        mods, ("knn_select",),
-        lambda: pipeline.step(st, *single[1], cfg_1))
+        mods, SINGLE_KERNELS, lambda: pipeline.step(st, *single[1], cfg_1))
     del st
 
     def assoc_b():
@@ -423,13 +508,150 @@ def check_knn(pipeline, mods, cfg_b, map_state, odom_state, cfg_1, single,
     check_recorded(mods, recorded, results, card)
 
 
+def segmented_reference(rng, bsz: int, rings: int, seg: int, pad: int,
+                        fill: float = 0.8):
+    """A ring-segmented odometry reference in the frontend's ring_heads
+    layout, planar and poisoned as window_mins takes it: (B, 4, M) f32
+    [x | y | z | ring], M = rings·seg + pad; ring r's valid points first
+    in rows [r·seg, (r+1)·seg), on a cone at height 0.4 r - 12.8 around
+    the sensor; padding at 1e9."""
+    m = rings * seg + pad
+    ref = np.full((bsz, 4, m), 1e9, np.float32)
+    for b in range(bsz):
+        for r in range(rings):
+            cnt = int(seg * fill) - int(rng.integers(0, 8))
+            th = rng.uniform(-np.pi, np.pi, cnt)
+            rad = rng.uniform(6, 40, cnt)
+            rows = slice(r * seg, r * seg + cnt)
+            ref[b, 0, rows] = rad * np.cos(th)
+            ref[b, 1, rows] = rad * np.sin(th)
+            ref[b, 2, rows] = 0.4 * r - 12.8 + rng.normal(0, 0.02, cnt)
+            ref[b, 3, rows] = r
+    return ref
+
+
+def queries_near(rng, ref, q: int, rings=None):
+    """(B, Q, 3) f32 queries 0.3 m off valid reference points (of the
+    given rings only, if any)."""
+    sel = np.zeros((ref.shape[0], q, 3), np.float32)
+    for b in range(ref.shape[0]):
+        ok = ref[b, 3] < 1e8
+        if rings is not None:
+            ok &= np.isin(ref[b, 3], rings)
+        pick = rng.choice(np.flatnonzero(ok), q)
+        sel[b] = ref[b, :3, pick] + rng.normal(0, 0.3, (q, 3))
+    return sel
+
+
+def check_adversarial(mods, device, results, card):
+    """Phase 4, second part: window_mins bit-equal to its plain version,
+    and to itself without ``ring_seg``, on B = 4 ring-segmented references
+    of the bench's surf layout (64 rings x 576 rows): plain queries,
+    queries on the first and last rings only, duplicate points (exact
+    ties), an all-poisoned reference (frame 0). segmented_prefix_sums
+    within its tolerance on long rows: no head at all, heads only at
+    multiples of 1024, sparse heads, a row length not a multiple of 4.
+    The scan's values are quarters and its last channel counts ones, so
+    every partial sum is exact and kernel and plain agree exactly."""
+    import torch
+    rng = np.random.default_rng(2024)
+    odom, vox = mods["window_mins"], mods["segmented_prefix_sums"]
+    seg = 576
+    ref = segmented_reference(rng, 4, 64, seg, 0)
+    dup = ref.copy()
+    for r in (0, 17, 40, 63):
+        dup[:, :3, r * seg + 3] = dup[:, :3, r * seg + 1]
+        if r < 63:
+            dup[:, :3, (r + 1) * seg + 2] = dup[:, :3, r * seg + 1]
+            dup[:, 2, (r + 1) * seg + 2] += 0.4
+    sel_dup = queries_near(rng, dup, 1536)
+    sel_dup[:, :8] = dup[:, :3, 17 * seg + 1][:, None, :]
+    cases = {
+        "segmented": (queries_near(rng, ref, 1536), ref),
+        "first_and_last_rings": (queries_near(rng, ref, 768, [0, 63]), ref),
+        "duplicates": (sel_dup, dup),
+        "all_poisoned": (queries_near(rng, ref, 1536),
+                         np.full_like(ref, 1e9)),
+    }
+    worst = 0.0
+    for label, (sel_np, ref_np) in cases.items():
+        sel = torch.from_numpy(sel_np).to(device)
+        r = torch.from_numpy(ref_np).to(device)
+        for want_same in (False, True):
+            got = odom.window_mins(sel, r, 2.5, want_same, seg)
+            worst = max(worst, compare(
+                "window_mins", got,
+                odom.window_mins_plain(sel, r, 2.5, want_same, seg)))
+            compare("window_mins", got,
+                    odom.window_mins(sel, r, 2.5, want_same, 0))
+        if label == "all_poisoned" and not (
+                (got[1] == 0).all() and (got[5] == 1).all()):
+            fail("window_mins: an all-poisoned reference must give the "
+                 "exhaustive scan's indices 0 and 1")
+        if label == "duplicates" and not (got[1][:, :8] == 17 * seg + 1).all():
+            fail("window_mins: a tie must go to the lowest index")
+        say(f"[adversarial] window_mins {label}: sel {tuple(sel.shape)} ref "
+            f"{tuple(r.shape)} ring_seg {seg}: bit-equal to plain and to "
+            f"ring_seg 0 ({card})")
+
+    def scan_case(label, k, rows, n, heads):
+        chan = rng.integers(-8, 9, size=(k, rows, n)) / 4
+        chan[-1] = 1.0
+        v = torch.from_numpy(chan.astype(np.float32)).to(device)
+        h = torch.from_numpy(heads).to(device)
+        err = compare("segmented_prefix_sums",
+                      vox.segmented_prefix_sums(v, h),
+                      vox.segmented_prefix_sums_plain(v, h))
+        say(f"[adversarial] segmented_prefix_sums {label}: vals "
+            f"{tuple(v.shape)} {int(heads.sum())} heads: max_abs_err "
+            f"{err:.3g} ({card})")
+        return err
+
+    n = 40960
+    none = np.zeros((1, n), bool)
+    tiles = np.zeros((2, 16384), bool)
+    tiles[:, ::1024] = True
+    sparse = rng.uniform(size=(3, 2048 * 33 + 4)) < 2e-4
+    odd = rng.uniform(size=(5, 8191)) < 0.05
+    odd[:, 0] = True
+    worst_scan = 0.0
+    for args in (("no head", 1, 1, n, none), ("no head", 8, 1, n, none),
+                 ("heads every 1024", 8, 2, 16384, tiles),
+                 ("sparse heads", 5, 3, sparse.shape[1], sparse),
+                 ("n = 8191", 5, 5, 8191, odd)):
+        worst_scan = max(worst_scan, scan_case(*args))
+    for name, err in (("window_mins", worst),
+                      ("segmented_prefix_sums", worst_scan)):
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+
+@contextlib.contextmanager
+def ring_seg_spy(mods, tag):
+    """Record the ``ring_seg`` of every window_mins call in the with-block;
+    fail after it unless there was one and every one was > 0."""
+    mod, segs = mods["window_mins"], []
+    real = mod.window_mins
+
+    def spy(sel, ref, nearby, want_same, ring_seg=0):
+        segs.append(ring_seg)
+        return real(sel, ref, nearby, want_same, ring_seg)
+
+    with Patched([(mod, "window_mins", spy)]):
+        yield
+    say(f"[{tag}] window_mins calls: {len(segs)}, ring_seg "
+        f"{sorted(set(segs))}")
+    if not segs or min(segs) <= 0:
+        fail(f"{tag}: the odometry search ran with ring_seg 0")
+
+
 def run_front(pipeline, mods, cfg, frames, device, card):
     """Phase 5: front_step_b with the kernels and with the plain
     versions."""
     for name in FRONT_KERNELS:
         mods[name].launches = 0
-    k_outs, k_ms, _ = run_frames(pipeline.front_step_b, pipeline, cfg,
-                                 frames, device)
+    with ring_seg_spy(mods, "front"):
+        k_outs, k_ms, _ = run_frames(pipeline.front_step_b, pipeline, cfg,
+                                     frames, device)
     launches = {name: mods[name].launches for name in FRONT_KERNELS}
     say(f"[front] kernel launches over {len(frames)} frames: {launches}")
     if min(launches.values()) < 1:
@@ -496,6 +718,83 @@ def stage_times(step, stages, pipeline, cfg, frames, device, batch):
     return per_frame
 
 
+def stage_busy(step, stages, pipeline, cfg, frames, device, batch):
+    """A kernel run of ``step`` with frames 1.. under torch.profiler, each
+    stage and mapping sub-stage in a record_function range: the device
+    time of the kernels each stage launched (the device's idle gaps left
+    out, unlike the CUDA-event spans of stage_times), the device's busy
+    time per frame and the frame's wall time under the profiler. Returns
+    ({label: ms per frame}, busy ms per frame, wall ms per frame,
+    kernels per frame, {device operation: ms per frame})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def labelled(label, fn):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    swaps = []
+    for label, (mod_name, attr) in stages.items():
+        mod = importlib.import_module(mod_name)
+        swaps.append((mod, attr, labelled(label, getattr(mod, attr))))
+    n = len(frames) - 1
+    with Patched(swaps):
+        st = pipeline.init_state(cfg, batch, device)
+        st, _ = step(st, *frames[0], cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for xyz, mask in frames[1:]:
+                st, _ = step(st, xyz, mask, cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+    # each stage range has a device-side mirror: the span from its first
+    # device operation to its last. One stream runs the operations in
+    # order, so a stage's device time is that of the operations starting
+    # inside its spans (the host ranges miss the kernels launched through
+    # ctypes, which no aten op encloses)
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = {label: [] for label in stages}
+    ops = []                                   # (start, duration, name)
+    for ev in prof.events():
+        if ev.device_type != cuda:
+            continue
+        if ev.name in stages:
+            spans[ev.name].append((ev.time_range.start, ev.time_range.end))
+        else:
+            ops.append((ev.time_range.start, ev.time_range.elapsed_us(),
+                        ev.name))
+    ops.sort()
+    starts = [o[0] for o in ops]
+    before = np.concatenate([[0.0], np.cumsum([o[1] for o in ops])])
+    per_stage = {label: sum(before[bisect.bisect_left(starts, e)]
+                            - before[bisect.bisect_left(starts, s)]
+                            for s, e in spans[label]) / 1e3 / n
+                 for label in stages}
+    per_op = {}
+    for _, dur, name in ops:
+        per_op[name] = per_op.get(name, 0.0) + dur / 1e3 / n
+    return per_stage, before[-1] / 1e3 / n, wall, len(ops) / n, per_op
+
+
+def say_busy(tag, stages, pipeline, cfg, frames, device, batch, card):
+    per_stage, busy, wall, kernels, per_op = stage_busy(
+        pipeline.step_b if batch > 1 else pipeline.step, stages, pipeline,
+        cfg, frames, device, batch)
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:10]
+    say(f"[{tag}] device busy ms per frame by stage, torch.profiler, mean "
+        f"of frames 1-{len(frames) - 1}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_stage.items())
+        + f"; the device busy {busy:.3f} of {wall:.2f} ms per frame "
+        f"(idle {100 * (1 - busy / wall):.1f}%), {kernels:.0f} device "
+        f"operations per frame ({card})")
+    say(f"[{tag}] device ms per frame by operation, the ten largest: "
+        + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+
+
 def say_stages(tag, per_frame, card):
     med = {label: float(np.median(v[1:])) for label, v in per_frame.items()}
     say(f"[{tag}] device ms per frame by stage, CUDA events, median of "
@@ -541,7 +840,7 @@ def pose_agreement(tag, k_outs, p_outs, k_ms, p_ms, batch):
 def ate_check(tag, k_outs, gt, batch):
     """Odometry and mapped ATE of a kernel run against the ground truth
     (B, F, 3); fails at 0.5 m."""
-    from aloam_tpu.eval.ate import ate_rmse
+    from aloam_tpu_torch.eval.ate import ate_rmse
     for name, key in (("odometry", "t_odom"), ("mapped", "t_map")):
         est = np.stack([np.reshape(o[key], (batch, 3)) for o in k_outs],
                        axis=1)                                    # (B, F, 3)
@@ -565,7 +864,9 @@ def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
     for mod in mods.values():
         mod.launches = 0
     torch.cuda.reset_peak_memory_stats(device)
-    k_outs, k_ms, st = run_frames(step, pipeline, cfg, frames, device, batch)
+    with ring_seg_spy(mods, tag):
+        k_outs, k_ms, st = run_frames(step, pipeline, cfg, frames, device,
+                                      batch)
     peak = torch.cuda.max_memory_allocated(device)
     launches = {name: mods[name].launches for name in KERNELS}
     say(f"[{tag}] kernel launches over {len(frames)} frames: {launches}")
@@ -597,6 +898,7 @@ def run_step(pipeline, mods, cfg, frames, gt, device, card):
 
     say_stages("step", stage_times(pipeline.step_b, STAGES, pipeline, cfg,
                                    frames, device, B), card)
+    say_busy("step", STAGES, pipeline, cfg, frames, device, B, card)
 
     col = {n: i for i, n in enumerate(METRIC_NAMES)}
     last = k_outs[-1]["metrics"]
@@ -624,6 +926,7 @@ def run_single(pipeline, mods, cfg, frames, gt, device, card):
         f"{card})")
     say_stages("single", stage_times(pipeline.step, SINGLE_STAGES, pipeline,
                                      cfg, frames, device, 1), card)
+    say_busy("single", SINGLE_STAGES, pipeline, cfg, frames, device, 1, card)
     last = dict(zip(METRIC_NAMES, k_outs[-1]["metrics"].tolist()))
     say("[single] last-frame metrics: " + json.dumps(last))
     if last["map_solved"] != 1:
@@ -671,7 +974,7 @@ def main() -> None:
     # ---- 1. device ------------------------------------------------------
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is False")
-    from aloam_tpu.config import PRESETS
+    from aloam_tpu_torch.config import PRESETS
     from aloam_tpu_torch import pipeline
     from aloam_tpu_torch.ops import _build
 
@@ -713,6 +1016,7 @@ def main() -> None:
     mods = {name: importlib.import_module(f"aloam_tpu_torch.ops.{spec[0]}")
             for name, spec in KERNELS.items()}
     results = check_kernels(pipeline, mods, cfg, frames, device, card)
+    check_adversarial(mods, device, results, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
     launches, st_b = run_step(pipeline, mods, cfg, frames, gt, device, card)
 
@@ -727,8 +1031,8 @@ def main() -> None:
         f"PRESETS['HDL-64'] (n_raw {cfg_1.n_raw}, ring_cap "
         f"{cfg_1.ring_cap}, less_flat_cap {cfg_1.less_flat_cap}) "
         f"({time.perf_counter() - t0:.1f} s)")
-    check_knn(pipeline, mods, cfg, st_b.map, st_b.odom, cfg_1, single,
-              device, results, card)
+    check_single_kernels(pipeline, mods, cfg, st_b.map, st_b.odom, cfg_1,
+                         single, device, results, card)
     del st_b
     single_launches = run_single(pipeline, mods, cfg_1, single, sgt, device,
                                  card)
@@ -739,7 +1043,11 @@ def main() -> None:
                     replaces=spec[4], launches=launches[name],
                     max_abs_err=results[name]["max_abs_err"],
                     ms=results[name]["ms"],
-                    plain_ms=results[name]["plain_ms"])
+                    plain_ms=results[name]["plain_ms"],
+                    bound_ms=results[name]["bound_ms"],
+                    bound_by=results[name]["bound_by"],
+                    # no one PyTorch call computes any of these functions
+                    library_ms=None)
                for name, spec in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,15 +8,18 @@ its XLA twin, as tests/test_batched_kernels.py and tests/test_pallas_lm.py
 run them. Each test states its tolerance.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from chip_smoke import queries_near, segmented_reference
 
 from aloam_tpu import geometry as jgeo
 from aloam_tpu import solver as jsolver
-from aloam_tpu.config import AloamConfig
+from aloam_tpu import config as jconfig
 from aloam_tpu.frontend import features as jfeat
 from aloam_tpu.frontend.voxel import _voxel_core as j_voxel_core
 from aloam_tpu.neighbors import odom_window_mins_b as j_window_mins_b
@@ -27,6 +30,7 @@ from aloam_tpu.ops.pallas_voxel import segmented_prefix_sums as j_seg_sums
 from aloam_tpu.utils.batch import bgather as j_bgather
 from aloam_tpu_torch import geometry as geo
 from aloam_tpu_torch import solver
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend import features
 from aloam_tpu_torch.frontend.voxel import _voxel_core
 from aloam_tpu_torch.neighbors import odom_window_mins_b
@@ -43,6 +47,15 @@ torch.set_num_threads(1)
 
 CFG = AloamConfig(scan_lines=16, minimum_range=0.3, n_raw=4096,
                   ring_cap=256, less_flat_cap=2048)
+
+
+def _jcfg(cfg):
+    """The JAX package's config with the same fields: port functions get
+    the port's config, JAX functions the JAX package's."""
+    return jconfig.AloamConfig(**dataclasses.asdict(cfg))
+
+
+JCFG = _jcfg(CFG)
 
 
 def _t(x):
@@ -75,7 +88,7 @@ def test_select_rings_matches_jax(seed):
     label_t, in_t = features._select_labels(_t(pts), _t(curv), _t(cnt), CFG)
 
     label_x, _, _ = jfeat._select_rings(jnp.asarray(pts), jnp.asarray(curv),
-                                        jnp.asarray(cnt), CFG)
+                                        jnp.asarray(cnt), JCFG)
     np.testing.assert_array_equal(label_t.numpy(),
                                   np.asarray(label_x, np.int32))
 
@@ -129,6 +142,42 @@ def test_segmented_prefix_sums_matches_jax(rng):
     np.testing.assert_allclose(got, pal, atol=1e-5, rtol=0)
     np.testing.assert_array_equal(got[1], pal[1])
     np.testing.assert_array_equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("heads_at", ["none", "every_1024", "sparse"])
+def test_segmented_prefix_sums_long_rows_match_jax(k, heads_at):
+    """Rows of 8192 that span several of the CUDA kernel's tiles: no head
+    at all (one segment from the row start carries through every tile),
+    heads only at multiples of 1024 (each segment is one whole tile), and
+    a few heads far apart. Against the Pallas kernel in interpret mode
+    (1024-wide chunks) and a float64 loop. The values are quarters in
+    [-2, 2] and the last channel counts ones, so every partial sum is
+    exact in f32 and all three agree exactly, whatever the order of
+    summation."""
+    rng = np.random.default_rng(k)
+    n = 8192
+    heads = np.zeros((2, n), bool)
+    if heads_at == "every_1024":
+        heads[:, ::1024] = True
+    elif heads_at == "sparse":
+        heads[0, [0, 1500, 6000]] = True
+        heads[1, [4097]] = True
+    chan = (rng.integers(-8, 9, size=(k, 2, n)) / 4).astype(np.float32)
+    chan[-1] = 1.0
+    got = seg_op.segmented_prefix_sums(_t(chan), _t(heads)).numpy()
+
+    pal = np.stack([np.asarray(o) for o in j_seg_sums(
+        tuple(jnp.asarray(c) for c in chan), jnp.asarray(heads), chunk=1024,
+        interpret=True)])
+    ref = np.zeros(chan.shape, np.float64)
+    for r in range(2):
+        starts = np.flatnonzero(heads[r]).tolist()
+        for a, b in zip([0] + starts, starts + [n]):
+            ref[:, r, a:b] = np.cumsum(chan[:, r, a:b], axis=-1,
+                                       dtype=np.float64)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, pal)
 
 
 @pytest.mark.parametrize("kernel_interpret", [False, True])
@@ -201,6 +250,106 @@ def test_window_mins_poisoned_cloud():
                              _t(ring), 2, want_same_ring=True)
     assert (got[0].numpy() > 1e17).all()
     assert (got[2].numpy() == np.inf).all()
+
+
+def _window_cases(rng, seg=24):
+    """Ring-segmented references (8 rings of ``seg`` rows and 16 tail
+    rows, chip_smoke.segmented_reference, scaled to a 10 m radius so
+    JAX's expanded d2 rounds within the 1e-4 the test allows) and queries
+    near them."""
+    ref = segmented_reference(rng, 2, 8, seg, 16)
+    ref[:, :3] = np.where(ref[:, 3:] < 1e8, 0.25 * ref[:, :3], 1e9)
+    cases = {"segmented": (queries_near(rng, ref, 48), ref)}
+    # the first and the last ring: the windows are clipped at the ends
+    cases["end_rings"] = (queries_near(rng, ref, 32, rings=[0, 7]), ref)
+    # duplicate points: exact ties in pass 1 and in both windows
+    dup = ref.copy()
+    for b in range(dup.shape[0]):
+        for r in (2, 5):
+            dup[b, :3, r * seg + 3] = dup[b, :3, r * seg + 1]
+            dup[b, :3, (r + 1) * seg + 2] = dup[b, :3, r * seg + 1]
+            dup[b, 2, (r + 1) * seg + 2] += 0.4
+    sel = queries_near(rng, dup, 40, rings=[2, 3, 5, 6])
+    sel[:, :4] = dup[:, :3, 2 * seg + 1][:, None, :]        # on the point
+    cases["duplicates"] = (sel, dup)
+    # frame 0: everything poisoned, pass 1 finds index 0 on ring 1e9
+    cases["all_poisoned"] = (queries_near(rng, ref, 24),
+                             np.full_like(ref, 1e9))
+    return cases, seg
+
+
+@pytest.mark.parametrize("case", ["segmented", "end_rings", "duplicates",
+                                  "all_poisoned"])
+def test_window_mins_ring_seg_contract(case):
+    """ring_seg only skips rows that no window can reach: the plain
+    version with the stride is bit-equal to itself without it, and agrees
+    with the Pallas kernel in interpret mode with the same stride (d2
+    within 1e-4: JAX expands q² − 2q·r + r²; indices exact wherever a
+    candidate exists, ties to the lowest index). On the all-poisoned
+    reference every query scans all M: d2_same ≈ 3e18 at index 1."""
+    cases, seg = _window_cases(np.random.default_rng(7))
+    sel, ref = cases[case]
+    for want_same in (False, True):
+        got = odom_op.window_mins_plain(_t(sel), _t(ref), 2.5, want_same,
+                                        ring_seg=seg)
+        full = odom_op.window_mins_plain(_t(sel), _t(ref), 2.5, want_same)
+        for g, f in zip(got, full):
+            assert torch.equal(g, f)
+    pal = j_window_mins(jnp.asarray(sel), jnp.asarray(ref), 2.5, tq=16,
+                        m_chunk=32, interpret=True, ring_seg=seg)
+    for j in range(0, 6, 2):
+        d_t, d_o = got[j].numpy(), np.asarray(pal[j])
+        has = np.isfinite(d_o)
+        np.testing.assert_allclose(d_t[has], d_o[has], rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(got[j + 1].numpy()[has],
+                                      np.asarray(pal[j + 1])[has])
+        np.testing.assert_array_equal(np.isfinite(d_t), has)
+    if case == "all_poisoned":
+        assert (got[1].numpy() == 0).all() and (got[5].numpy() == 1).all()
+        assert (got[4].numpy() > 1e18).all()
+        assert np.isinf(got[2].numpy()).all()
+    else:
+        assert np.isfinite(got[2].numpy()).mean() > 0.9
+    if case == "duplicates":
+        # the query on the duplicated point: its lower-index copy wins
+        np.testing.assert_array_equal(got[1].numpy()[:, :4], 2 * seg + 1)
+        assert (got[0].numpy()[:, :4] == 0).all()
+        np.testing.assert_array_equal(got[5].numpy()[:, :4], 2 * seg + 3)
+    if case == "end_rings":
+        br = np.take_along_axis(ref[:, 3], got[1].numpy().astype(int), 1)
+        assert {0.0, 7.0} <= set(np.unique(br).tolist())
+
+
+def test_window_mins_ring_seg_reaches_the_search(monkeypatch):
+    """odometry_step_b declares its handoff clouds ring-segmented with the
+    JAX package's strides: n_regions · max_less_sharp for corners and
+    min(ring_cap, less_flat_cap // scan_lines) for surfaces."""
+    seen = []
+    real = odom_op.window_mins
+
+    def spy(sel, ref, nearby, want_same, ring_seg=0):
+        seen.append((want_same, ring_seg, ref.shape[2]))
+        return real(sel, ref, nearby, want_same, ring_seg)
+
+    monkeypatch.setattr(odom_op, "window_mins", spy)
+    from aloam_tpu_torch import odometry as tod
+    from aloam_tpu_torch.types import PointCloud, ScanFeatures
+
+    def cloud(cap):
+        return PointCloud(xyz=torch.zeros(1, cap, 3),
+                          intensity=torch.zeros(1, cap),
+                          mask=torch.zeros(1, cap, dtype=torch.bool))
+    feats = ScanFeatures(sharp=cloud(CFG.sharp_cap),
+                         less_sharp=cloud(CFG.less_sharp_cap),
+                         flat=cloud(CFG.flat_cap),
+                         less_flat=cloud(CFG.less_flat_cap),
+                         full=cloud(8), overflow=torch.zeros(1))
+    tod.odometry_step_b(tod.init_state(CFG, 1, "cpu"), feats, CFG)
+    seg_p = min(CFG.ring_cap, CFG.less_flat_cap // CFG.scan_lines)
+    assert seen == [(False, CFG.n_regions * CFG.max_less_sharp,
+                     CFG.less_sharp_cap),
+                    (True, seg_p, CFG.less_flat_cap)] * CFG.odom_outer_rounds
+    assert seg_p == 128
 
 
 # --- lm_fused ----------------------------------------------------------------

@@ -16,6 +16,8 @@ plane inliers), so poses get the 2.5e-2 that JAX allows between its own
 batched and single paths (tests/test_batched_kernels.py) and counts ±8.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +26,7 @@ import torch
 
 from aloam_tpu import mapping as jmp
 from aloam_tpu import pipeline as jpipe
-from aloam_tpu.config import AloamConfig
+from aloam_tpu import config as jconfig
 from aloam_tpu.frontend.voxel import voxel_downsample_masked_b as j_vds_b
 from aloam_tpu.io import synthetic as syn
 from aloam_tpu.ops import gridmap as jgrid
@@ -35,6 +37,7 @@ from aloam_tpu.ops.pallas_insert import merge_tiles as j_merge_tiles
 from aloam_tpu_torch import geometry as geo
 from aloam_tpu_torch import mapping as mp
 from aloam_tpu_torch import pipeline as tp
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend.voxel import voxel_downsample_masked_b
 from aloam_tpu_torch.ops import assoc as assoc_op
 from aloam_tpu_torch.ops import gridmap
@@ -52,6 +55,15 @@ CFG = AloamConfig(
     map_table_corner=1024, map_table_surf=2048,
     corner_stack_cap=256, surf_stack_cap=1024,
 )
+
+
+def _jcfg(cfg):
+    """The JAX package's config with the same fields: port functions get
+    the port's config, JAX functions the JAX package's."""
+    return jconfig.AloamConfig(**dataclasses.asdict(cfg))
+
+
+JCFG = _jcfg(CFG)
 B = 3
 N_FRAMES = 3
 
@@ -78,7 +90,7 @@ def _scene():
 
 def _jax_init():
     st = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape),
-                      jpipe.init_state(CFG))
+                      jpipe.init_state(JCFG))
     return st._replace(frame=jnp.zeros((B,), jnp.int32))
 
 
@@ -87,7 +99,7 @@ def jax_run():
     """JAX step_b under jit over the scene: the states after each frame
     (numpy leaves) and each frame's outputs."""
     xyz, mask = _scene()
-    step = jax.jit(lambda s, x, m: jpipe.step_b(s, x, m, CFG))
+    step = jax.jit(lambda s, x, m: jpipe.step_b(s, x, m, JCFG))
     st = _jax_init()
     states, outs = [_np(st)], []
     for f in range(N_FRAMES):
@@ -398,7 +410,7 @@ def test_insert_vds_b_matches_jax(jax_run):
     ds, m, q_w, t_w, grid = _mapping_inputs(jax_run, 2)
     pts_w = _world(q_w, t_w, ds[..., :3])
     center = np.floor(t_w / CFG.knn_cell).astype(np.int32)
-    window = np.asarray(jmp._window_cells(CFG))
+    window = np.asarray(jmp._window_cells(JCFG))
     args = (CFG.plane_resolution, CFG.knn_cell)
     want = jax.jit(lambda *a: jgrid.insert_vds_b(*a[:4], *args, *a[4:], 16,
                                                  1024))(
@@ -475,7 +487,7 @@ def test_assoc_out8_b_matches_jax_kernel_branch(jax_run, cspan):
         dead = dead | spill
     for kind, okc in (("surf", 4), ("corner", 6)):
         ker, n_k = jax.jit(lambda s_, p_, c_: jmp._assoc_out8_b(
-            s_, p_, c_, cfg, kind, force_kernel_interpret=True))(
+            s_, p_, c_, _jcfg(cfg), kind, force_kernel_interpret=True))(
                 sel, poison, jc)
         got, n_t = mp._assoc_out8_b(_t(sel), _t(poison), tc, cfg, kind)
         ker, got = np.asarray(ker), got.numpy()
@@ -517,7 +529,7 @@ def test_mapping_step_b_matches_jax(jax_run, reuse):
         want_solved = jm["map_solved"]
     else:
         want, mm = jax.jit(lambda s, c, f, q, t: jmp.mapping_step_b(
-            s, c, f, q, t, cfg))(st1.map, st2.odom.corner_last,
+            s, c, f, q, t, _jcfg(cfg)))(st1.map, st2.odom.corner_last,
                                  st2.odom.surf_last, st2.odom.q_w,
                                  st2.odom.t_w)
         want_cf, want_sf = mm.corner_factors, mm.surf_factors

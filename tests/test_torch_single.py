@@ -17,6 +17,7 @@ paths, counts ±8 (the rounding-sensitive gates; see
 tests/test_torch_mapping.py).
 """
 
+import dataclasses
 import json
 import os
 
@@ -29,7 +30,7 @@ import torch
 from aloam_tpu import geometry as jgeo
 from aloam_tpu import mapping as jmp
 from aloam_tpu import pipeline as jpipe
-from aloam_tpu.config import AloamConfig
+from aloam_tpu import config as jconfig
 from aloam_tpu.io import synthetic as syn
 from aloam_tpu.ops import gridmap as jgrid
 from aloam_tpu.ops.pallas_knn import knn_select as j_knn_select
@@ -38,6 +39,7 @@ from aloam_tpu_torch import cli
 from aloam_tpu_torch import geometry as geo
 from aloam_tpu_torch import mapping as mp
 from aloam_tpu_torch import pipeline as tp
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend.voxel import voxel_downsample_masked_b
 from aloam_tpu_torch.ops import assoc as assoc_op
 from aloam_tpu_torch.ops import gridmap
@@ -56,6 +58,15 @@ CFG = AloamConfig(
     map_table_corner=1024, map_table_surf=2048,
     corner_stack_cap=256, surf_stack_cap=1024, emit_registered=True,
 )
+
+
+def _jcfg(cfg):
+    """The JAX package's config with the same fields: port functions get
+    the port's config, JAX functions the JAX package's."""
+    return jconfig.AloamConfig(**dataclasses.asdict(cfg))
+
+
+JCFG = _jcfg(CFG)
 N_FRAMES = 3
 
 
@@ -81,8 +92,8 @@ def jax_run():
     """JAX's single-stream step under jit over the scene: the states
     before and after each frame (numpy leaves) and each frame's outputs."""
     xyz, mask = _scene()
-    step = jax.jit(lambda s, x, m: jpipe.step(s, x, m, CFG))
-    st = jpipe.init_state(CFG)
+    step = jax.jit(lambda s, x, m: jpipe.step(s, x, m, JCFG))
+    st = jpipe.init_state(JCFG)
     states, outs = [_np(st)], []
     for f in range(N_FRAMES):
         st, out = step(st, xyz[f], mask[f])
@@ -269,7 +280,7 @@ def test_associations_b_match_jax(jax_run, kind):
         else jmp.surf_associations_b
     tfn = mp.corner_associations_b if kind == "corner" \
         else mp.surf_associations_b
-    jf, jsp, jc = jax.jit(lambda *a: jfn(*a, CFG))(stack, m, g1, q, t)
+    jf, jsp, jc = jax.jit(lambda *a: jfn(*a, JCFG))(stack, m, g1, q, t)
     tf, tsp, cache = tfn(_t(stack), _t(m), tg, _t(q), _t(t), CFG)
     assert int(tsp.sum()) == int(jsp) == 0
 
@@ -304,7 +315,7 @@ def test_associations_b_match_jax(jax_run, kind):
     assert torch.equal(tf2.mask, tf.mask)
 
     cfg = CFG.replace(map_cell_cap=64)
-    jf, jsp, _ = jax.jit(lambda *a: jfn(*a, cfg))(stack, m, g1, q, t)
+    jf, jsp, _ = jax.jit(lambda *a: jfn(*a, _jcfg(cfg)))(stack, m, g1, q, t)
     tf, tsp, cache = tfn(_t(stack), _t(m), tg, _t(q), _t(t), cfg)
     assert int(tsp.sum()) == int(jsp) > 0
     spilled = cache.cid.numpy()[0] >= 64
@@ -382,7 +393,7 @@ def test_extract_surround_matches_jax(jax_run):
     jst = states[-1]
     corner, surf = mp.extract_surround(tp.state_from_numpy(jst, "cpu").map,
                                        CFG)
-    jc, js = jmp.extract_surround(jax.tree.map(jnp.asarray, jst.map), CFG)
+    jc, js = jmp.extract_surround(jax.tree.map(jnp.asarray, jst.map), JCFG)
     np.testing.assert_array_equal(corner[0], jc)
     np.testing.assert_array_equal(surf[0], js)
     assert len(surf[0]) > 100
@@ -492,7 +503,7 @@ def test_checkpoint_moves_between_packages(jax_run, tmp_path):
     with np.load(path2) as z:
         assert int(z["n_leaves"]) == 20
         assert z["leaf_0"].shape == (4,) and z["leaf_19"].shape == ()
-    back = jckpt.load(path2, jpipe.init_state(CFG))
+    back = jckpt.load(path2, jpipe.init_state(JCFG))
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jst)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     again = ckpt.load(path2, tp.init_state(CFG, 1, "cpu"))

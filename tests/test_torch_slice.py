@@ -15,6 +15,7 @@ odometry step, as tests/test_batched_kernels.py allows between JAX's own
 batched and single paths.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -27,13 +28,14 @@ import pytest
 import torch
 
 from aloam_tpu import odometry as jod
-from aloam_tpu.config import AloamConfig
+from aloam_tpu import config as jconfig
 from aloam_tpu.frontend import extract_features_b as j_extract_b
 from aloam_tpu.frontend import register_scan_b as j_register_b
 from aloam_tpu.frontend.registration import ring_ids as j_ring_ids
 from aloam_tpu.io import synthetic as syn
 from aloam_tpu_torch import odometry as tod
 from aloam_tpu_torch import pipeline as tp
+from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend import extract_features_b, register_scan_b
 from aloam_tpu_torch.frontend.registration import ring_ids
 from aloam_tpu_torch.types import PointCloud, RingCloud, ScanFeatures
@@ -50,6 +52,15 @@ CFG = AloamConfig(
     map_table_corner=1024, map_table_surf=2048,
     corner_stack_cap=256, surf_stack_cap=1024,
 )
+
+
+def _jcfg(cfg):
+    """The JAX package's config with the same fields: port functions get
+    the port's config, JAX functions the JAX package's."""
+    return jconfig.AloamConfig(**dataclasses.asdict(cfg))
+
+
+JCFG = _jcfg(CFG)
 B = 3
 N_FRAMES = 3
 CLOUDS = ("sharp", "less_sharp", "flat", "less_flat", "full")
@@ -75,9 +86,9 @@ def scene():
 
 @pytest.fixture(scope="module")
 def jax_fns():
-    return (jax.jit(lambda x, m: j_register_b(x, m, CFG)),
-            jax.jit(lambda rc, cv: j_extract_b(rc, cv, CFG)),
-            jax.jit(lambda s, f: jod.odometry_step_b(s, f, CFG)))
+    return (jax.jit(lambda x, m: j_register_b(x, m, JCFG)),
+            jax.jit(lambda rc, cv: j_extract_b(rc, cv, JCFG)),
+            jax.jit(lambda s, f: jod.odometry_step_b(s, f, JCFG)))
 
 
 def _t(x):
@@ -109,7 +120,7 @@ def test_register_scan_b_matches_jax(lines):
     xyz, mask = _scene(cfg, 1)
     xyz, mask = xyz[0], mask[0]
     rc_j, curv_j, ovf_j = j_register_b(jnp.asarray(xyz), jnp.asarray(mask),
-                                       cfg)
+                                       _jcfg(cfg))
     rc_t, curv_t, ovf_t = register_scan_b(_t(xyz), _t(mask), cfg)
 
     live = mask & (np.abs(xyz).sum(-1) > 0)
@@ -157,7 +168,7 @@ def test_odometry_step_b_matches_jax(scene, jax_fns):
     state_from_numpy) and the same features: poses atol 5e-4, counts ±3."""
     reg, ext, odo = jax_fns
     feats = [ext(*reg(scene[0][f], scene[1][f])[:2]) for f in range(2)]
-    st_j, _ = odo(_jax_init(CFG), feats[0])
+    st_j, _ = odo(_jax_init(JCFG), feats[0])
     st_j1, m_j = odo(st_j, feats[1])
 
     st_t = tod.state_from_numpy(jax.tree.map(np.asarray, st_j), "cpu")
@@ -182,7 +193,7 @@ def test_front_step_b_matches_jax_chain(scene, jax_fns):
     per frame t atol 5e-3 m and q atol 2e-3; feature counts exact and the
     per-stream frontend overflow summing to JAX's batch-wide value."""
     reg, ext, odo = jax_fns
-    st_j = _jax_init(CFG)
+    st_j = _jax_init(JCFG)
     st_t = tp.init_state(CFG, B, "cpu")
     for f in range(N_FRAMES):
         rc, curv, ovf = reg(scene[0][f], scene[1][f])
@@ -211,14 +222,16 @@ def test_port_runs_without_jax():
     """The card's machine has no JAX: the port must import and run one
     front step, one whole batched step and one single-stream step
     (mapping included), and import its CLI and checkpoint modules, with
-    ``jax`` unimportable."""
+    ``jax`` and the JAX package ``aloam_tpu`` both unimportable; its
+    config and scene come from the port's own copies."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["aloam_tpu"] = None
         import torch
         torch.set_num_threads(1)
-        from aloam_tpu.config import AloamConfig
-        from aloam_tpu.io import synthetic as syn
+        from aloam_tpu_torch.config import AloamConfig
+        from aloam_tpu_torch.io import synthetic as syn
         from aloam_tpu_torch import pipeline
         cfg = AloamConfig(scan_lines=16, minimum_range=0.3, n_raw=2048,
                           ring_cap=128, less_flat_cap=1024)
@@ -241,7 +254,10 @@ def test_port_runs_without_jax():
         from aloam_tpu_torch import cli
         from aloam_tpu_torch.utils import checkpoint
         assert cli.build_parser().parse_args([]).device == "cuda"
+        from aloam_tpu_torch.eval import viz
+        from aloam_tpu_torch.io import kitti, native_loader
         assert sys.modules["jax"] is None
+        assert sys.modules["aloam_tpu"] is None
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
