@@ -37,18 +37,19 @@
 // Design. Pass 1 (nn_partial_kernel) runs on a (query tiles, M splits, B)
 // grid, the split count chosen by the wrapper (ops/odom.launch_plan) for
 // about four blocks per SM, even at one stream, unless that would leave a
-// split fewer than 128 rows. Each thread keeps QPT queries in
-// registers; the block stages its split of the reference in shared memory
-// as interleaved [x y z ring] float4, so one 16-byte broadcast load feeds
-// QPT distance evaluations. Each split scans its rows in index order with
-// a strict <, and writes its (d2, idx) partial to scratch; the blocks of
-// the first query tile also write the interleaved reference to scratch.
-// Pass 2 (window_kernel) gives each query a group of G lanes: the lanes
-// merge the partials (the lexicographic (d2, idx) minimum, the same as
-// merging the splits in order with a strict <), read br, then stride over
-// the query's window with one 16-byte load per row from L1/L2, and a
-// shuffle (d2, idx) minimum over the group gives the lowest index on a
-// tie. No Q x M matrix exists anywhere.
+// split fewer than 128 rows. Each thread keeps QPT (2 or 4) queries in
+// registers; the block stages its split of the reference in shared
+// memory as interleaved [x y z ring] float4, so one 16-byte broadcast
+// load feeds QPT distance evaluations. Each split scans its rows in index
+// order with a strict <, and writes its (d2, idx) partial to scratch; the
+// blocks of the first query tile also write the interleaved reference to
+// scratch.
+// Pass 2 (window_kernel) gives each query a group of G (8, 16 or 32)
+// lanes: the lanes merge the partials (the lexicographic (d2, idx)
+// minimum, the same as merging the splits in order with a strict <), read
+// br, then stride over the query's window with one 16-byte load per row
+// from L1/L2, and a shuffle (d2, idx) minimum over the group gives the
+// lowest index on a tie. No Q x M matrix exists anywhere.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -278,9 +279,9 @@ void launch_pass2(const float* sel, const float4* ref4, const float* part_d,
 // there for pass 2); part_d / part_i (splits, bsz, q_n) f32 / i32
 // scratch; out_d (3, bsz,
 // q_n) f32 and out_i (3, bsz, q_n) i32, rows [nn, diff-ring, same-ring];
-// all contiguous. qpt in {1, 2, 4} queries per pass-1 thread, group in
-// {1, 2, 4, 8, 16, 32} lanes per pass-2 query, split_len = ceil(m /
-// splits). Returns the cudaError_t of the launches.
+// all contiguous. qpt in {2, 4} queries per pass-1 thread, group in
+// {8, 16, 32} lanes per pass-2 query, split_len = ceil(m / splits).
+// Returns the cudaError_t of the launches.
 extern "C" int aloam_odom_window(const float* sel, const float* ref,
                                  float* ref4, float* part_d, int* part_i,
                                  float* out_d,
@@ -295,7 +296,6 @@ extern "C" int aloam_odom_window(const float* sel, const float* ref,
   const int split_len = (m + splits - 1) / splits;
   float4* r4 = reinterpret_cast<float4*>(ref4);
   switch (qpt) {
-    case 1: launch_pass1<1>(sel, ref, r4, part_d, part_i, bsz, q_n, m, splits, split_len, s); break;
     case 2: launch_pass1<2>(sel, ref, r4, part_d, part_i, bsz, q_n, m, splits, split_len, s); break;
     case 4: launch_pass1<4>(sel, ref, r4, part_d, part_i, bsz, q_n, m, splits, split_len, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -303,9 +303,6 @@ extern "C" int aloam_odom_window(const float* sel, const float* ref,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (group) {
-    case 1: launch_pass2<1>(sel, r4, part_d, part_i, out_d, out_i, bsz, q_n, m, splits, nearby, want_same, ring_seg, s); break;
-    case 2: launch_pass2<2>(sel, r4, part_d, part_i, out_d, out_i, bsz, q_n, m, splits, nearby, want_same, ring_seg, s); break;
-    case 4: launch_pass2<4>(sel, r4, part_d, part_i, out_d, out_i, bsz, q_n, m, splits, nearby, want_same, ring_seg, s); break;
     case 8: launch_pass2<8>(sel, r4, part_d, part_i, out_d, out_i, bsz, q_n, m, splits, nearby, want_same, ring_seg, s); break;
     case 16: launch_pass2<16>(sel, r4, part_d, part_i, out_d, out_i, bsz, q_n, m, splits, nearby, want_same, ring_seg, s); break;
     case 32: launch_pass2<32>(sel, r4, part_d, part_i, out_d, out_i, bsz, q_n, m, splits, nearby, want_same, ring_seg, s); break;

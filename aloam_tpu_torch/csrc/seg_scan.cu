@@ -16,15 +16,15 @@
 // Design: long rows are split across blocks in tiles of 256 x E elements
 // (E = 4 or 8 per thread, picked by the wrapper so that few rows still
 // fill the card), in three phases and two launches.
-//   1. seg_tile_kernel, one block per (tile, row): each thread scans its
-//      E elements (16-byte loads of vals and 4-byte loads of heads where
-//      the row length is a multiple of 4), a shuffle ladder scans the
-//      thread sums of each warp, and every warp adds the carry of the
-//      warps before it from shared memory. It writes the tile-local
-//      result, and, for a row of several tiles, the tile's aggregate:
-//      the local sum at its last element per channel and the position of
-//      its first head.
-//   2. seg_carry_kernel, one block per (tile >= 1, row): one warp walks
+//   1. seg_tile_kernel, one block per (row, tile): each thread scans its
+//      E elements (16-byte loads of vals and 4-byte loads of heads; the
+//      wrapper pads a row length that is not a multiple of 4), a shuffle
+//      ladder scans the thread sums of each warp, and every warp adds the
+//      carry of the warps before it from shared memory. It writes the
+//      tile-local result, and, for a row of several tiles, the tile's
+//      aggregate: the local sum at its last element per channel and the
+//      position of its first head.
+//   2. seg_carry_kernel, one block per (row, tile >= 1): one warp walks
 //      the aggregates of the tiles before this one, 32 at a time, back to
 //      the nearest tile with a head (the segmented exclusive scan of the
 //      aggregates, which mostly ends at the previous tile) and
@@ -46,13 +46,12 @@ __global__ void __launch_bounds__(kThreads)
     seg_tile_kernel(const float* __restrict__ vals,
                     const uint8_t* __restrict__ heads,
                     float* __restrict__ out, float* __restrict__ agg,
-                    int* __restrict__ meta, int rows, int n, int tiles,
-                    int vec) {
+                    int* __restrict__ meta, int rows, int n, int tiles) {
   constexpr int T = kThreads * E;
   __shared__ float s_wv[kWarps][K];
   __shared__ int s_wf[kWarps];
   __shared__ int s_fh[kWarps];
-  const int r = blockIdx.y, t = blockIdx.x;
+  const int r = blockIdx.x, t = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t plane = (size_t)rows * n;
   const size_t row0 = (size_t)r * n;
@@ -62,35 +61,23 @@ __global__ void __launch_bounds__(kThreads)
   // the sums of the last segment as they are
   float v[K][E];
   bool f[E];
-  if (vec) {
 #pragma unroll
-    for (int i = 0; i < E / 4; ++i) {
-      const int j = j0 + 4 * i;
-      const bool in = j < n;
-      const uint32_t h =
-          in ? *reinterpret_cast<const uint32_t*>(heads + row0 + j) : 0u;
+  for (int i = 0; i < E / 4; ++i) {
+    const int j = j0 + 4 * i;
+    const bool in = j < n;
+    const uint32_t h =
+        in ? *reinterpret_cast<const uint32_t*>(heads + row0 + j) : 0u;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) f[4 * i + u] = (h >> (8 * u)) & 0xffu;
+    for (int u = 0; u < 4; ++u) f[4 * i + u] = (h >> (8 * u)) & 0xffu;
 #pragma unroll
-      for (int c = 0; c < K; ++c) {
-        const float4 x =
-            in ? *reinterpret_cast<const float4*>(vals + c * plane + row0 + j)
-               : make_float4(0.f, 0.f, 0.f, 0.f);
-        v[c][4 * i] = x.x;
-        v[c][4 * i + 1] = x.y;
-        v[c][4 * i + 2] = x.z;
-        v[c][4 * i + 3] = x.w;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int j = j0 + e;
-      const bool in = j < n;
-      f[e] = in && heads[row0 + j] != 0;
-#pragma unroll
-      for (int c = 0; c < K; ++c)
-        v[c][e] = in ? vals[c * plane + row0 + j] : 0.f;
+    for (int c = 0; c < K; ++c) {
+      const float4 x =
+          in ? *reinterpret_cast<const float4*>(vals + c * plane + row0 + j)
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[c][4 * i] = x.x;
+      v[c][4 * i + 1] = x.y;
+      v[c][4 * i + 2] = x.z;
+      v[c][4 * i + 3] = x.w;
     }
   }
 
@@ -160,25 +147,15 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  if (vec) {
 #pragma unroll
-    for (int i = 0; i < E / 4; ++i) {
-      const int j = j0 + 4 * i;
-      if (j < n) {
+  for (int i = 0; i < E / 4; ++i) {
+    const int j = j0 + 4 * i;
+    if (j < n) {
 #pragma unroll
-        for (int c = 0; c < K; ++c)
-          *reinterpret_cast<float4*>(out + c * plane + row0 + j) =
-              make_float4(v[c][4 * i], v[c][4 * i + 1], v[c][4 * i + 2],
-                          v[c][4 * i + 3]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      if (j0 + e < n) {
-#pragma unroll
-        for (int c = 0; c < K; ++c) out[c * plane + row0 + j0 + e] = v[c][e];
-      }
+      for (int c = 0; c < K; ++c)
+        *reinterpret_cast<float4*>(out + c * plane + row0 + j) =
+            make_float4(v[c][4 * i], v[c][4 * i + 1], v[c][4 * i + 2],
+                        v[c][4 * i + 3]);
     }
   }
 
@@ -200,7 +177,7 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ meta, int rows, int n, int tiles,
                      int tile_len) {
   __shared__ float s_carry[K];
-  const int r = blockIdx.y, t = blockIdx.x + 1;
+  const int r = blockIdx.x, t = blockIdx.y + 1;
   const size_t row_tiles = (size_t)r * tiles;
   const int len = min(meta[row_tiles + t], n - t * tile_len);
   if (len <= 0) return;  // the tile starts with a head
@@ -244,21 +221,21 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int K>
 int launch(const float* vals, const uint8_t* heads, float* out, float* agg,
-           int* meta, int rows, int n, int e, int tiles, int vec,
+           int* meta, int rows, int n, int e, int tiles,
            cudaStream_t stream) {
-  const dim3 grid(tiles, rows);
+  const dim3 grid(rows, tiles);
   if (e == 4) {
     seg_tile_kernel<K, 4><<<grid, kThreads, 0, stream>>>(
-        vals, heads, out, agg, meta, rows, n, tiles, vec);
+        vals, heads, out, agg, meta, rows, n, tiles);
   } else if (e == 8) {
     seg_tile_kernel<K, 8><<<grid, kThreads, 0, stream>>>(
-        vals, heads, out, agg, meta, rows, n, tiles, vec);
+        vals, heads, out, agg, meta, rows, n, tiles);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || tiles == 1) return static_cast<int>(err);
-  seg_carry_kernel<K><<<dim3(tiles - 1, rows), kThreads, 0, stream>>>(
+  seg_carry_kernel<K><<<dim3(rows, tiles - 1), kThreads, 0, stream>>>(
       out, agg, meta, rows, n, tiles, kThreads * e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -266,29 +243,30 @@ int launch(const float* vals, const uint8_t* heads, float* out, float* agg,
 }  // namespace
 
 // vals (n_chan, rows, n) f32, heads (rows, n) u8, out (n_chan, rows, n)
-// f32, all contiguous; agg (rows, tiles, n_chan) f32 and meta (rows,
-// tiles) i32 scratch, read only when tiles > 1. e in {4, 8} elements per
-// thread, tiles = ceil(n / (256 e)); vec = 1 allows 16-byte loads (n a
-// multiple of 4, vals 16-byte and heads 4-byte aligned). Returns the
-// cudaError_t of the launches.
+// f32, all contiguous, n a multiple of 4, vals and out 16-byte and heads
+// 4-byte aligned; agg (rows, tiles, n_chan) f32 and meta (rows, tiles) i32
+// scratch, used only when tiles > 1. e in {4, 8} elements per thread,
+// tiles = ceil(n / (256 e)) <= 65535. Returns the cudaError_t of the
+// launches.
 extern "C" int aloam_seg_scan(const float* vals, const uint8_t* heads,
                               float* out, float* agg, int* meta, int n_chan,
-                              int rows, int n, int e, int tiles, int vec,
+                              int rows, int n, int e, int tiles,
                               void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  if (rows > 65535 || tiles <= 0 || (long long)tiles * kThreads * e < n ||
+  if (n % 4 != 0 || tiles <= 0 || tiles > 65535 ||
+      (long long)tiles * kThreads * e < n ||
       (long long)(tiles - 1) * kThreads * e >= n)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_chan) {
-    case 1: return launch<1>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
-    case 2: return launch<2>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
-    case 3: return launch<3>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
-    case 4: return launch<4>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
-    case 5: return launch<5>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
-    case 6: return launch<6>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
-    case 7: return launch<7>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
-    case 8: return launch<8>(vals, heads, out, agg, meta, rows, n, e, tiles, vec, s);
+    case 1: return launch<1>(vals, heads, out, agg, meta, rows, n, e, tiles, s);
+    case 2: return launch<2>(vals, heads, out, agg, meta, rows, n, e, tiles, s);
+    case 3: return launch<3>(vals, heads, out, agg, meta, rows, n, e, tiles, s);
+    case 4: return launch<4>(vals, heads, out, agg, meta, rows, n, e, tiles, s);
+    case 5: return launch<5>(vals, heads, out, agg, meta, rows, n, e, tiles, s);
+    case 6: return launch<6>(vals, heads, out, agg, meta, rows, n, e, tiles, s);
+    case 7: return launch<7>(vals, heads, out, agg, meta, rows, n, e, tiles, s);
+    case 8: return launch<8>(vals, heads, out, agg, meta, rows, n, e, tiles, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

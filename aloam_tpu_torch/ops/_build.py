@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # C signatures: (name, argument types); every function returns int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "aloam_seg_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "aloam_seg_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "aloam_select_rings": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                            _P),
     "aloam_odom_window": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _I, _I, _I,

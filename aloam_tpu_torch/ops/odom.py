@@ -107,18 +107,17 @@ _MIN_SPLIT = 128   # fewest reference rows a pass-1 split scans
 
 
 def launch_plan(bsz: int, q_n: int, m: int, n_sm: int):
-    """(qpt, splits, group) of a launch: queries per pass-1 thread (4, 2
-    or 1, so the last query tile is not mostly empty), reference splits
+    """(qpt, splits, group) of a launch: queries per pass-1 thread (4,
+    or 2 where the last tile of 4 would be mostly empty), reference splits
     (enough pass-1 blocks for about four per SM, each split at least
     ``_MIN_SPLIT`` rows, no split empty) and lanes per pass-2 query (32,
-    halved while the lanes would exceed 2048 per SM)."""
-    rows = -(-q_n // _THREADS1)
-    qpt = 4 if rows % 4 == 0 else 2 if rows % 2 == 0 else 1
+    halved while the lanes would exceed 2048 per SM, down to 8)."""
+    qpt = 4 if -(-q_n // _THREADS1) % 4 == 0 else 2
     tiles = -(-q_n // (_THREADS1 * qpt))
     splits = max(1, min(-(-4 * n_sm // (tiles * bsz)), -(-m // _MIN_SPLIT)))
     splits = -(-m // -(-m // splits))
     group = 32
-    while group > 1 and bsz * q_n * group > 2048 * n_sm:
+    while group > 8 and bsz * q_n * group > 2048 * n_sm:
         group //= 2
     return qpt, splits, group
 
@@ -147,16 +146,17 @@ def window_mins(sel: torch.Tensor, ref_planar: torch.Tensor, nearby: float,
     m = ref_planar.shape[2]
     qpt, splits, group = launch_plan(bsz, q_n, m,
                                      _build.sm_count(sel.device))
-    ref4 = torch.empty((bsz, m, 4), dtype=torch.float32, device=sel.device)
-    part_d = torch.empty((splits, bsz, q_n), dtype=torch.float32,
-                         device=sel.device)
-    part_i = torch.empty((splits, bsz, q_n), dtype=torch.int32,
-                         device=sel.device)
+    # one scratch buffer: the interleaved reference (B, M, 4) f32, then
+    # the splits' partials (splits, B, Q) f32 d2 and int32 idx
+    part = splits * bsz * q_n
+    scratch = torch.empty(bsz * m * 4 + 2 * part, dtype=torch.float32,
+                          device=sel.device)
+    ref4 = scratch.data_ptr()
+    part_d = ref4 + bsz * m * 16
     out_d = torch.empty((3, bsz, q_n), dtype=torch.float32, device=sel.device)
     out_i = torch.empty((3, bsz, q_n), dtype=torch.int32, device=sel.device)
     _build.launch("aloam_odom_window", sel.device, sel.data_ptr(),
-                  ref_planar.data_ptr(), ref4.data_ptr(), part_d.data_ptr(),
-                  part_i.data_ptr(),
+                  ref_planar.data_ptr(), ref4, part_d, part_d + part * 4,
                   out_d.data_ptr(), out_i.data_ptr(), bsz, q_n, m,
                   float(nearby), int(bool(want_same)), int(ring_seg), qpt,
                   splits, group)

@@ -58,15 +58,29 @@ def segmented_prefix_sums(vals: torch.Tensor,
     if tuple(heads.shape) != (r, n) or not 1 <= k <= 8:
         raise ValueError(f"segmented_prefix_sums: vals {tuple(vals.shape)}, "
                          f"heads {tuple(heads.shape)}")
+    n4 = n + -n % 4
+    if n4 != n or vals.data_ptr() % 16 or heads.data_ptr() % 4:
+        # the kernel loads 4 elements at a time from aligned rows: copy into
+        # fresh rows padded with elements of value 0 and no head, which
+        # change no sum before them
+        vals4 = vals.new_zeros((k, r, n4))
+        heads4 = heads.new_zeros((r, n4))
+        vals4[..., :n] = vals
+        heads4[:, :n] = heads
+        return segmented_prefix_sums(vals4, heads4)[..., :n].contiguous()
     e, tiles = launch_plan(r, n, _build.sm_count(vals.device))
-    vec = n % 4 == 0 and vals.data_ptr() % 16 == 0 \
-        and heads.data_ptr() % 4 == 0
     out = torch.empty_like(vals)
-    agg = torch.empty((r, tiles, k), dtype=torch.float32, device=vals.device)
-    meta = torch.empty((r, tiles), dtype=torch.int32, device=vals.device)
+    agg = meta = 0
+    if tiles > 1:
+        # one scratch buffer: the tile sums (r, tiles, k), then the
+        # position of each tile's first head (r, tiles) as int32
+        scratch = torch.empty(r * tiles * (k + 1), dtype=torch.float32,
+                              device=vals.device)
+        agg = scratch.data_ptr()
+        meta = agg + r * tiles * k * 4
     _build.launch("aloam_seg_scan", vals.device, vals.data_ptr(),
-                  heads.data_ptr(), out.data_ptr(), agg.data_ptr(),
-                  meta.data_ptr(), k, r, n, e, tiles, int(vec))
+                  heads.data_ptr(), out.data_ptr(), agg, meta, k, r, n, e,
+                  tiles)
     global launches
     launches += 1
     return out

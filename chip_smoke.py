@@ -21,13 +21,15 @@ of JAX or of the JAX package. Phases, each printing its own lines:
 4. kernels: each of step_b's six kernels against its plain PyTorch
    version on the card, on every distinct input shape the main path gave
    it in frame 1 of ``step_b``, with the stated tolerance, both timed
-   with CUDA events, beside the kernel's bound (the least time the card
-   could take for the same work, from the bytes and the operations these
-   inputs need); then ``window_mins`` and ``segmented_prefix_sums`` on
-   adversarial inputs (an all-poisoned reference, duplicate points,
-   queries on the first and last rings, with and without ``ring_seg``;
+   with CUDA events (the kernel back to back, its wrapper's host cost
+   included, and queued behind a sleep for its device time alone),
+   beside the kernel's bound (the least time the card could take for the
+   same work, from the bytes and the operations these inputs need); then
+   ``window_mins`` and ``segmented_prefix_sums`` on adversarial inputs
+   (an all-poisoned reference, duplicate points, queries on the first
+   and last rings, with and without ``ring_seg``;
    rows without heads across many tiles, heads only at tile boundaries,
-   a row length that is not a multiple of 4);
+   a row length that is not a multiple of 4, 70000 short rows);
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
    kernels (its four launch counters must rise, and every odometry search
    must declare ``ring_seg`` > 0) and with the plain versions; per-frame
@@ -56,10 +58,10 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    run resumed from the frame-2 checkpoint must give frame 3's pose.
 
 The second-to-last line is a JSON object with one entry per kernel (its
-launches on the main path, worst error, kernel, plain and bound ms at its
-largest input); the last line is ``{"ok": true, "device": {...}}``. Any
-failed check exits non-zero before that line; so does a machine without a
-CUDA card.
+launches on the main path, worst error, kernel ms back to back, device
+ms, plain and bound ms at its largest input); the last line is
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
+that line; so does a machine without a CUDA card.
 """
 
 from __future__ import annotations
@@ -239,10 +241,11 @@ class Patched:
 
 def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     """Mean milliseconds per call, CUDA events around ``reps`` calls after
-    one warm-up call. With ``queued`` the calls wait behind a 10 ms sleep
-    kernel, so the host has launched them all before the first starts and
-    the time is the device's alone; without it a short kernel's time is
-    its wrapper's host launch cost."""
+    one warm-up call, back to back: a short kernel's time is then its
+    wrapper's host launch cost, as the main path pays it. With ``queued``
+    the calls wait behind a ~10 ms sleep kernel, so the host has launched
+    them all before the first starts and the time is the device's
+    alone."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -439,22 +442,22 @@ def check_recorded(mods, recorded, results, card):
                       *[a for a in extra if isinstance(a, str)])
         nbytes, flops = kernel_work(name, args, kw, got)
         bound_ms, bound_by = bound_of(nbytes, flops)
-        ms = cuda_ms(lambda: kern(*args, **kw), 20, queued=True)
-        b2b_ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        ms = cuda_ms(lambda: kern(*args, **kw), 20)
+        device_ms = cuda_ms(lambda: kern(*args, **kw), 20, queued=True)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 5)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         size = sum(a.numel() for a in args if torch.is_tensor(a))
         say(f"[kernel] {name}{extra if extra else ''}: inputs {shapes} "
-            f"max_abs_err {err:.3g} kernel {ms:.4f} ms (back to back "
-            f"{b2b_ms:.4f}) plain {plain_ms:.4f} ms bound {bound_ms:.4f} "
+            f"max_abs_err {err:.3g} kernel {ms:.4f} ms (device "
+            f"{device_ms:.4f}) plain {plain_ms:.4f} ms bound {bound_ms:.4f} "
             f"ms ({bound_by}: "
             f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP) ({card})")
         prev = results.get(name)
         if prev is None or size > prev["size"]:
             results[name] = dict(max_abs_err=max(err, prev["max_abs_err"])
-                                 if prev else err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by,
-                                 size=size)
+                                 if prev else err, ms=ms, device_ms=device_ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, size=size)
         else:
             prev["max_abs_err"] = max(err, prev["max_abs_err"])
 
@@ -550,7 +553,8 @@ def check_adversarial(mods, device, results, card):
     queries on the first and last rings only, duplicate points (exact
     ties), an all-poisoned reference (frame 0). segmented_prefix_sums
     within its tolerance on long rows: no head at all, heads only at
-    multiples of 1024, sparse heads, a row length not a multiple of 4.
+    multiples of 1024, sparse heads, a row length not a multiple of 4;
+    and on more rows than a grid's y or z extent (65535) allows.
     The scan's values are quarters and its last channel counts ones, so
     every partial sum is exact and kernel and plain agree exactly."""
     import torch
@@ -614,11 +618,13 @@ def check_adversarial(mods, device, results, card):
     sparse = rng.uniform(size=(3, 2048 * 33 + 4)) < 2e-4
     odd = rng.uniform(size=(5, 8191)) < 0.05
     odd[:, 0] = True
+    many = rng.uniform(size=(70000, 64)) < 0.1
     worst_scan = 0.0
     for args in (("no head", 1, 1, n, none), ("no head", 8, 1, n, none),
                  ("heads every 1024", 8, 2, 16384, tiles),
                  ("sparse heads", 5, 3, sparse.shape[1], sparse),
-                 ("n = 8191", 5, 5, 8191, odd)):
+                 ("n = 8191", 5, 5, 8191, odd),
+                 ("70000 rows", 2, 70000, 64, many)):
         worst_scan = max(worst_scan, scan_case(*args))
     for name, err in (("window_mins", worst),
                       ("segmented_prefix_sums", worst_scan)):
@@ -1043,6 +1049,7 @@ def main() -> None:
                     replaces=spec[4], launches=launches[name],
                     max_abs_err=results[name]["max_abs_err"],
                     ms=results[name]["ms"],
+                    device_ms=results[name]["device_ms"],
                     plain_ms=results[name]["plain_ms"],
                     bound_ms=results[name]["bound_ms"],
                     bound_by=results[name]["bound_by"],

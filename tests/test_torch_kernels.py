@@ -15,7 +15,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from chip_smoke import queries_near, segmented_reference
 
 from aloam_tpu import geometry as jgeo
 from aloam_tpu import solver as jsolver
@@ -42,6 +41,7 @@ from aloam_tpu_torch.ops import odom as odom_op
 from aloam_tpu_torch.ops import select as select_op
 from aloam_tpu_torch.ops import voxel as seg_op
 from aloam_tpu_torch.utils.batch import bgather
+from _torch_scenes import queries_near, segmented_reference
 
 torch.set_num_threads(1)
 
@@ -254,7 +254,7 @@ def test_window_mins_poisoned_cloud():
 
 def _window_cases(rng, seg=24):
     """Ring-segmented references (8 rings of ``seg`` rows and 16 tail
-    rows, chip_smoke.segmented_reference, scaled to a 10 m radius so
+    rows, _torch_scenes.segmented_reference, scaled to a 10 m radius so
     JAX's expanded d2 rounds within the 1e-4 the test allows) and queries
     near them."""
     ref = segmented_reference(rng, 2, 8, seg, 16)
