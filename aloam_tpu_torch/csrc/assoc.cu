@@ -19,29 +19,51 @@
 // them alike. The TPU kernel's polynomial acos/cos/sin were Mosaic limits;
 // this kernel calls acosf/cosf as the plain version does.
 //
-// What bounds it on an H100: reading candidate rows. A surf row is
-// 8 x 3 x 48 floats (4.6 KB) and every query reads its own, ~300 MB of row
-// reads per surf call at B = 16; queries of one cell are adjacent in sorted
-// order (about 8 per cell), so most rows come from L2. Design: one warp
-// per query. Each lane holds up to 16 candidates' d2 in registers; each
-// select pass is a lane-local scan plus a 5-step shuffle (value, index)
-// argmin, shared with knn.cu (knn_select.cuh). On the TPU the row pick was a one-hot MXU matmul over a DMA'd
-// cell window; here it is an indexed load. Lane 0 runs the fit.
+// What bounds it on an H100: latency and issue, not bytes. A surf row is
+// 8 x 3 x 48 floats (4.6 KB) and the whole cell cache 99 MB at B = 16
+// (bound 0.030 ms; the rows the live queries need are ~42 MB). One warp
+// per query with lane 0 fitting spent most of its time in the select,
+// ran the full select for the poisoned padding queries (42% on the main
+// path), and fitted on one lane (PERF.md §6). Design: a warp owns 8
+// consecutive queries (lanes 0-7; 8 rather than 32, so that four times as
+// many warps hide the select's shuffle and load latency). It walks the runs
+// of its live queries that share a row (rows do not decrease within a
+// tile, ~4 queries a row on the main path), stages each run's row once in
+// shared memory with 16-byte cp.async into one of two warp-private
+// buffers, so the next run's row loads while this one is selected, and
+// selects the run's queries one after another with the lanes spread over
+// the staged candidates (two or four queries at once ran slower: their d2
+// registers cut the warps an SM holds). Each lane keeps its two smallest
+// (d2, index) keys; a pass is two redux.sync minima (the d2 bits, which
+// order as unsigned integers for d2 >= 0, then the lowest index holding
+// that minimum), and the winning lane promotes its second key and rescans
+// only when it wins again. The five picks' coordinates and d2_4 go to a
+// per-query record in shared memory, and then each owning lane fits its
+// own query. A gated query reads no row and is fitted on zeros, as the
+// plain version gates it. Device time at B = 16 fell from ~0.155 / ~0.127
+// ms to ~0.052 / ~0.036 ms (surf / corner; PERF.md §6), within twice the
+// byte bound: the passes wait on redux.sync and the warps on their rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "knn_select.cuh"
-
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxPerLane = 16;  // 8 * bw / 32 candidates per lane, bw <= 64
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 4;     // warps per block
+constexpr int kSlots = 8;     // queries per warp, one per lane < kSlots
+constexpr int kRec = 17;      // record floats: 15 coordinates, d2_4, pad
+constexpr int kMaxBw = 64;
 // constants as torch rounds the Python floats of the plain version
 constexpr float kEps = static_cast<float>(1e-12);  // linalg3._EPS
 constexpr float kReg = static_cast<float>(1e-9);   // solve3's reg
 constexpr float kVnMin = static_cast<float>(1e-8);
 constexpr float kTwoPi3 = static_cast<float>(2.0943951023931953);
+
+// shared floats of one warp: two row buffers of 24 bw, then the records
+__host__ __device__ constexpr int warp_floats(int bw) {
+  return 2 * 24 * bw + kSlots * kRec;
+}
 
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x < lo ? lo : x;  // NaN passes through, as torch.clamp_min
@@ -150,8 +172,8 @@ __device__ void fit_corner(const float c[3], const float dv[3][5],
     nrm[j] = pm[0][j] * pm[0][j] + pm[1][j] * pm[1][j] + pm[2][j] * pm[2][j];
   const bool s0 = (nrm[0] >= nrm[1]) && (nrm[0] >= nrm[2]);
   const bool s1 = !s0 && (nrm[1] >= nrm[2]);
-  const int col = s0 ? 0 : (s1 ? 1 : 2);
-  float v[3] = {pm[0][col], pm[1][col], pm[2][col]};
+  float v[3];
+  for (int i = 0; i < 3; ++i) v[i] = s0 ? pm[i][0] : (s1 ? pm[i][1] : pm[i][2]);
   const float vn = sqrtf(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]);
   const bool good = vn > kVnMin;
   const float den = clamp_min(vn, kEps);
@@ -166,44 +188,187 @@ __device__ void fit_corner(const float c[3], const float dv[3][5],
   out[7] = d4;
 }
 
-__global__ void assoc_cell_kernel(const float* __restrict__ cand,
-                                  const int* __restrict__ cid0,
-                                  const float* __restrict__ q8,
-                                  float* __restrict__ out, int n_rows, int n,
-                                  int bw, int tq, int win, int kind,
-                                  float gate_sq, float plane_tol,
-                                  float eigen_ratio, float half_len) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (i >= n) return;  // the whole warp leaves together
-  const float* q = q8 + (size_t)i * 8;
-  const float qx = q[0], qy = q[1], qz = q[2];
-  const long long c0 = cid0[i / tq];
-  const long long local = static_cast<long long>(q[4]);
-  const long long rem = c0 - 8 * (c0 >= 0 ? c0 / 8 : (c0 - 7) / 8);
-  const long long row = c0 + local;
-  const bool poison = q[3] > 0.f || local + rem >= win || row < 0
-                      || row >= n_rows;
-  const float* rp = cand + (poison ? 0 : row) * (long long)(24 * bw);
+// Copy one row of 24 bw floats (bw % 4 == 0, 16-byte aligned) into a
+// staging buffer, 16 bytes a lane, as one cp.async group per lane.
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          int bw, int lane) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  for (int v = lane; v < 6 * bw; v += 32)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     s + 16u * v),
+                 "l"(src + 4 * v)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  // the gated 5-NN select over the row (knn_select.cuh)
-  float d[kMaxPerLane];
-  knn_sel::row_d2(rp, bw, qx, qy, qz, poison, lane, d);
-  float ds[5];
-  int idx[5];
+// Offset of candidate j's x in a block-planar row; y at +bw, z at +2 bw.
+__device__ __forceinline__ int cand_off(int bw, int j) {
+  const int blk = j / bw;
+  return blk * 3 * bw + (j - blk * bw);
+}
+
+// Insert key (v, k) into a lane's two smallest keys (m1, k1) <= (m2, k2).
+__device__ __forceinline__ void top2(float v, int k, float& m1, int& k1,
+                                     float& m2, int& k2) {
+  const bool lt1 = v < m1, lt2 = v < m2;
+  m2 = lt1 ? m1 : (lt2 ? v : m2);
+  k2 = lt1 ? k1 : (lt2 ? k : k2);
+  m1 = lt1 ? v : m1;
+  k1 = lt1 ? k : k1;
+}
+
+// The gated 5-NN of the live query in lane `slot` over the staged row sb;
+// off[k] is the offset of this lane's candidate lane + 32 k (-1 past the
+// row). Writes the query's record: the picks' coordinates p[a][k] at
+// a*5+k (zero unless d2_4 < gate_sq) and d2_4. Every array index is a
+// compile-time constant, so d stays in registers.
+template <int PER_LANE>
+__device__ __forceinline__ void select_query(const float* sb, int bw,
+                                             const int (&off)[PER_LANE],
+                                             int slot, float qx, float qy,
+                                             float qz, float gate_sq,
+                                             int lane, float* rec) {
+  const float sx = __shfl_sync(kFull, qx, slot);
+  const float sy = __shfl_sync(kFull, qy, slot);
+  const float sz = __shfl_sync(kFull, qz, slot);
+  // Each lane keeps its two smallest (d2, k) keys. A pass takes the
+  // warp's smallest first key; the winning lane promotes its second. A
+  // lane that wins again rescans for its two smallest keys past the last
+  // one it gave up (the picks come in increasing key order, so those are
+  // exactly the keys left). Strict < over increasing k keeps the lower
+  // index first on a tie.
+  float d[PER_LANE];
+  float m1 = INFINITY, m2 = INFINITY;
+  int k1 = 0, k2 = 1;
 #pragma unroll
-  for (int pass = 0; pass < 5; ++pass)
-    knn_sel::select_pass(d, lane, ds[pass], idx[pass]);
-  if (lane != 0) return;
+  for (int k = 0; k < PER_LANE; ++k) {
+    d[k] = INFINITY;
+    if (off[k] >= 0) {
+      const float* c = sb + off[k];
+      const float dx = __fsub_rn(c[0], sx);
+      const float dy = __fsub_rn(c[bw], sy);
+      const float dz = __fsub_rn(c[2 * bw], sz);
+      d[k] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                       __fmul_rn(dz, dz));
+    }
+    top2(d[k], k, m1, k1, m2, k2);
+  }
+  // lane a*5+k keeps pick k, to write coordinate a of it
+  const int a = lane / 5, kk = lane - 5 * (lane / 5);
+  unsigned mine = 0;
+  float d4 = 0.f, ld = -1.f;
+  int lk = 0;
+  bool stale = false;
+#pragma unroll
+  for (int pass = 0; pass < 5; ++pass) {
+    // d2 >= 0 (+inf included) orders as its unsigned bits
+    const unsigned bits = __float_as_uint(m1);
+    const unsigned m = __reduce_min_sync(kFull, bits);
+    const unsigned key = static_cast<unsigned>(32 * k1 + lane);
+    const unsigned j = __reduce_min_sync(kFull, bits == m ? key : kFull);
+    mine = kk == pass ? j : mine;
+    d4 = __uint_as_float(m);
+    if (static_cast<int>(j & 31) == lane && pass < 4) {
+      ld = m1;
+      lk = k1;
+      if (stale) {
+        m1 = m2 = INFINITY;
+        k1 = 0;
+        k2 = 1;
+#pragma unroll
+        for (int k = 0; k < PER_LANE; ++k)
+          if (d[k] > ld || (d[k] == ld && k > lk))
+            top2(d[k], k, m1, k1, m2, k2);
+      } else {
+        m1 = m2;
+        k1 = k2;
+      }
+      stale = !stale;
+    }
+  }
+  // lane a*5+k writes coordinate a of pick k; lane 15 writes d2_4
+  float* r = rec + slot * kRec;
+  if (lane < 15)
+    r[lane] = d4 < gate_sq ? sb[cand_off(bw, static_cast<int>(mine)) + a * bw]
+                           : 0.f;
+  else if (lane == 15)
+    r[15] = d4;
+}
 
-  // neighbours, zeroed unless the 5th distance passes the gate
-  const float d4 = ds[4];
+template <int PER_LANE>
+__global__ void __launch_bounds__(kWarps * 32)
+    assoc_cell_kernel(const float* __restrict__ cand,
+                      const int* __restrict__ cid0,
+                      const float* __restrict__ q8, float* __restrict__ out,
+                      int n_rows, int n, int bw, int tq, int win, int kind,
+                      float gate_sq, float plane_tol, float eigen_ratio,
+                      float half_len) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* bufs = smem + warp * warp_floats(bw);
+  float* rec = bufs + 2 * 24 * bw;
+  const int i = (blockIdx.x * kWarps + warp) * kSlots + lane;
+
+  // this lane's query, its row and its gate
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  long long row = -1;
+  bool live = false;
+  if (lane < kSlots && i < n) {
+    const float* q = q8 + (size_t)i * 8;
+    qx = q[0];
+    qy = q[1];
+    qz = q[2];
+    const long long c0 = cid0[i / tq];
+    const long long local = static_cast<long long>(q[4]);
+    const long long rem = c0 - 8 * (c0 >= 0 ? c0 / 8 : (c0 - 7) / 8);
+    row = c0 + local;
+    live = !(q[3] > 0.f || local + rem >= win || row < 0 || row >= n_rows);
+  }
+  if (lane < kSlots) rec[lane * kRec + 15] = INFINITY;  // gated: +inf
+  // this lane's candidates j = lane + 32 k of a row
+  int off[PER_LANE];
+#pragma unroll
+  for (int k = 0; k < PER_LANE; ++k)
+    off[k] = lane + 32 * k < 8 * bw ? cand_off(bw, lane + 32 * k) : -1;
+
+  // the live queries, run by run (a run: the live lanes of one row)
+  unsigned todo = __ballot_sync(kFull, live);
+  int cur = 0;
+  long long cur_row = todo ? __shfl_sync(kFull, row, __ffs(todo) - 1) : 0;
+  if (todo) stage_row(bufs, cand + cur_row * (24LL * bw), bw, lane);
+  while (todo) {
+    const unsigned run = __ballot_sync(kFull, live && row == cur_row) & todo;
+    const unsigned rest = todo & ~run;
+    long long next_row = 0;
+    if (rest) {
+      next_row = __shfl_sync(kFull, row, __ffs(rest) - 1);
+      stage_row(bufs + (cur ^ 1) * 24 * bw, cand + next_row * (24LL * bw),
+                bw, lane);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();
+    const float* sb = bufs + cur * 24 * bw;
+    for (unsigned left = run; left; left &= left - 1)
+      select_query<PER_LANE>(sb, bw, off, __ffs(left) - 1, qx, qy, qz,
+                             gate_sq, lane, rec);
+    __syncwarp();  // every lane is done with this buffer before a restage
+    todo = rest;
+    cur_row = next_row;
+    cur ^= 1;
+  }
+  __syncwarp();
+  if (lane >= kSlots || i >= n) return;
+
+  // the fit, one query per lane
+  const float* r = rec + lane * kRec;
+  const float d4 = r[15];
   const bool gate = d4 < gate_sq;
   float p[3][5];
-  for (int k = 0; k < 5; ++k) {
-    const float* c = knn_sel::cand_x(rp, bw, idx[k]);
-    for (int a = 0; a < 3; ++a) p[a][k] = gate && !poison ? c[a * bw] : 0.f;
-  }
+  for (int a = 0; a < 3; ++a)
+    for (int k = 0; k < 5; ++k) p[a][k] = gate ? r[a * 5 + k] : 0.f;
   float s[3], cen[3], dv[3][5];
   for (int a = 0; a < 3; ++a) {
     s[a] = sum5(p[a]);
@@ -215,16 +380,38 @@ __global__ void assoc_cell_kernel(const float* __restrict__ cand,
     fit_surf(p, s, cen, dv, gate, d4, plane_tol, o);
   else
     fit_corner(cen, dv, gate, d4, eigen_ratio, half_len, o);
-  float* dst = out + (size_t)i * 8;
-  for (int k = 0; k < 8; ++k) dst[k] = o[k];
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)i * 8);
+  dst[0] = make_float4(o[0], o[1], o[2], o[3]);
+  dst[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+template <int PER_LANE>
+int launch(const float* cand, const int* cid0, const float* q8, float* out,
+           int n_rows, int n, int bw, int tq, int win, int kind,
+           float gate_sq, float plane_tol, float eigen_ratio, float half_len,
+           cudaStream_t stream) {
+  // the largest request any bw <= 64 makes, set once per instantiation
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      assoc_cell_kernel<PER_LANE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWarps * warp_floats(kMaxBw) * static_cast<int>(sizeof(float)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int per_block = kWarps * kSlots;
+  const size_t smem = kWarps * warp_floats(bw) * sizeof(float);
+  assoc_cell_kernel<PER_LANE><<<(n + per_block - 1) / per_block,
+                                kWarps * 32, smem, stream>>>(
+      cand, cid0, q8, out, n_rows, n, bw, tq, win, kind, gate_sq, plane_tol,
+      eigen_ratio, half_len);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// cand (n_rows, 24 bw) f32 block-planar rows; cid0 (ceil(n / tq),) i32;
-// q8 (n, 8) f32 [x y z poison local 0 0 0]; out (n, 8) f32; all
-// contiguous. bw % 4 == 0 and bw <= 64; win = clipped cell window rows;
-// kind 0 corner, 1 surf. Returns the cudaError_t of the launch.
+// cand (n_rows, 24 bw) f32 block-planar rows, 16-byte aligned; cid0
+// (ceil(n / tq),) i32; q8 (n, 8) f32 [x y z poison local 0 0 0]; out (n, 8)
+// f32, 16-byte aligned; all contiguous. bw % 4 == 0 and bw <= 64; win =
+// clipped cell window rows; kind 0 corner, 1 surf. Returns the cudaError_t
+// of the launch.
 extern "C" int aloam_assoc_cell(const float* cand, const int* cid0,
                                 const float* q8, float* out, int n_rows,
                                 int n, int bw, int tq, int win, int kind,
@@ -232,11 +419,16 @@ extern "C" int aloam_assoc_cell(const float* cand, const int* cid0,
                                 float eigen_ratio, float half_len,
                                 void* stream) {
   if (n <= 0) return 0;
-  const int threads = 32 * kWarpsPerBlock;
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  assoc_cell_kernel<<<blocks, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      cand, cid0, q8, out, n_rows, n, bw, tq, win, kind, gate_sq, plane_tol,
-      eigen_ratio, half_len);
-  return static_cast<int>(cudaGetLastError());
+  if (bw <= 0 || bw % 4 || bw > kMaxBw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 8 bw candidates over 32 lanes: bw / 4 a lane, rounded up to 8, 12, 16
+  if (bw <= 32)
+    return launch<8>(cand, cid0, q8, out, n_rows, n, bw, tq, win, kind,
+                     gate_sq, plane_tol, eigen_ratio, half_len, s);
+  if (bw <= 48)
+    return launch<12>(cand, cid0, q8, out, n_rows, n, bw, tq, win, kind,
+                      gate_sq, plane_tol, eigen_ratio, half_len, s);
+  return launch<16>(cand, cid0, q8, out, n_rows, n, bw, tq, win, kind,
+                    gate_sq, plane_tol, eigen_ratio, half_len, s);
 }

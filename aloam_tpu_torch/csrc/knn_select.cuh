@@ -1,6 +1,6 @@
 // Gated k-pass select over one block-planar candidate row, one warp per
-// query. Shared by knn.cu (pallas_knn.knn_select) and assoc.cu
-// (pallas_assoc.assoc_cell, whose select is pallas_knn.select_passes).
+// query, for knn.cu (pallas_knn.knn_select). assoc.cu selects several
+// queries of one staged row at once with the same rounding and tie rule.
 //
 // A row holds 8 sub-blocks of [x(bw) | y(bw) | z(bw)]; candidate
 // j = block * bw + e. Lane l holds the distances of candidates

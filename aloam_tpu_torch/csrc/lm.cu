@@ -18,24 +18,42 @@
 // TPU kernel needed multiples of 128).
 //
 // What bounds it on an H100: latency. Each solve is 1 + n_iters sweeps
-// over ~2300 factor rows of 40 bytes (odometry at HDL-64 size), a few
-// hundred KB in all, and every sweep waits on the previous accept/reject.
-// Design: one block per stream. Threads stride over the factor rows and
-// accumulate the 21 upper-triangle H entries, 6 g entries, the cost and
-// the count in registers. A warp-shuffle then shared-memory reduction
-// collects them, and thread 0 solves the damped 6x6 by unpivoted
-// elimination (the matrix is symmetric positive definite), retracts and
-// decides. Everything stays on the chip for the whole solve: one launch
-// per solve.
+// over a few thousand factor rows (4.1 MB for B = 16 map solves, bound
+// 0.0012 ms), and every sweep waits on the previous accept/reject. One
+// block a stream, its 256 threads walking 28 rows each one after another,
+// took 12 us a map sweep and 0.062 ms a solve (PERF.md §6). Design: a
+// thread block cluster per stream (its size from ops/lm.launch_plan, 8 at
+// B <= 12, 6 at B = 16). Each block copies its contiguous slice of the
+// stream's edge and plane rows into shared memory once (4-byte cp.async,
+// all in flight together); no later sweep reads device memory. A sweep
+// accumulates the 21 upper-triangle H entries, 6 g entries, the cost and
+// the count per thread, reduces them over each warp by a transposing
+// shuffle reduction (31 shuffles for the 29 sums) and over the block in
+// shared memory, and writes the block's 29 sums into every block of the
+// cluster (distributed shared memory, double-buffered by sweep). After one cluster barrier
+// each block adds the sums in rank order, so every block holds the same
+// H, g and cost, and its thread 0 decides on the previous step, solves the
+// damped 6x6 by unpivoted elimination (pallas_lm._solve6; the matrix is
+// symmetric positive definite) and retracts: the same steps on the same
+// numbers, so no block waits for a pose from another. One launch per
+// solve. Device time at B = 16 fell from ~0.062 / ~0.031 ms to ~0.025 /
+// ~0.018 ms (map / odometry; PERF.md §6). What remains is the slice copy
+// and five rounds of a sweep (issue-bound: two warps a scheduler), the
+// cluster barrier with the rank-order sum, and the serial solve on
+// thread 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kAcc = 29;  // 21 H (upper triangle) + 6 g + cost + count
+constexpr int kMaxCluster = 8;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMaxDtheta = 0.5f;  // solver._MAX_DTHETA
 constexpr float kMaxDt = 5.0f;      // solver._MAX_DT
@@ -62,20 +80,44 @@ __device__ __forceinline__ void add_row(float* acc, const float* j,
   }
 }
 
-// Robust weight and cost of one block with squared norm s (Ceres'
-// HuberLoss convention, solver.huber_weight / huber_cost).
-__device__ __forceinline__ float huber(float s, float delta, float d2h,
-                                       float* cost) {
-  const float sr = sqrtf(fmaxf(s, 1e-20f));
-  *cost = s <= d2h ? s : 2.f * delta * sr - d2h;
-  return s <= d2h ? 1.f : delta / sr;
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;  // NaN passes through, as torch.clamp_min
 }
 
-// One sweep over both factor sets at pose (q, t); the block's sums end
-// up in s_acc (read after the function returns).
-__device__ void sweep(const float* __restrict__ ef, int ne,
-                      const float* __restrict__ pf, int np, const float* pose,
-                      float delta, float (*s_red)[kAcc], float* s_acc) {
+// Robust weight and cost of one block with squared norm s (Ceres'
+// HuberLoss convention, solver.huber_weight / huber_cost). The hardware
+// reciprocal square root (2 ulp) stands in for a square root and a
+// division on the sweep's longest chain, well inside the tolerance the
+// solve is held to.
+__device__ __forceinline__ float huber(float s, float delta, float d2h,
+                                       float* cost) {
+  const float sc = clamp_min(s, 1e-20f);
+  const float rs = rsqrtf(sc);
+  const float sr = sc == INFINITY ? sc : sc * rs;  // sqrt, inf kept
+  *cost = s <= d2h ? s : 2.f * delta * sr - d2h;
+  return s <= d2h ? 1.f : delta * rs;
+}
+
+// One step of the transposing warp reduction: a lane keeps the half of
+// its first 2 O sums selected by its lane bit O and adds its partner's copy.
+template <int O>
+__device__ __forceinline__ void fold(float (&v)[32], int lane) {
+  const bool up = lane & O;
+#pragma unroll
+  for (int a = 0; a < O; ++a) {
+    const float keep = up ? v[a + O] : v[a];
+    const float send = up ? v[a] : v[a + O];
+    v[a] = keep + __shfl_xor_sync(kFull, send, O);
+  }
+}
+
+// One sweep over this block's slice at pose (q, t): ne edge rows, channel
+// c at ef[c * ne], and np plane rows, channel c at pf[c * np], in shared
+// memory. Returns this thread's share of the block's 29 sums: thread a
+// < kAcc holds sum a.
+__device__ float sweep(const float* ef, int ne, const float* pf, int np,
+                       const float* pose, float delta,
+                       float (*s_red)[32]) {
   const float qw = pose[0], qx = pose[1], qy = pose[2], qz = pose[3];
   const float tx = pose[4], ty = pose[5], tz = pose[6];
   const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
@@ -104,9 +146,8 @@ __device__ void sweep(const float* __restrict__ ef, int ne,
                          r20 * px + r21 * py + r22 * pz};
     const float ux = rp[0] + tx, uy = rp[1] + ty, uz = rp[2] + tz;
     const float dv[3] = {ax - bx, ay - by, az - bz};
-    const float inl =
-        1.f / fmaxf(sqrtf(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2]),
-                    1e-12f);
+    const float inl = rsqrtf(
+        clamp_min(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2], 1e-24f));
     const float vax = ux - ax, vay = uy - ay, vaz = uz - az;
     const float vbx = ux - bx, vby = uy - by, vbz = uz - bz;
     const float r[3] = {(vay * vbz - vaz * vby) * inl,
@@ -157,24 +198,26 @@ __device__ void sweep(const float* __restrict__ ef, int ne,
     add_row(acc, j, 1, &r, w);
   }
 
-  // block reduction: warps by shuffle, then across warps in shared memory
+  // block reduction: a transposing warp reduction (31 shuffles for the
+  // 29 sums, padded to 32: each step a lane keeps one half of its sums
+  // and adds its partner's copy of it, so lane a ends with the warp's sum
+  // a), then across warps in shared memory
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  float v[32];
 #pragma unroll
-  for (int a = 0; a < kAcc; ++a) {
-    float v = acc[a];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(kFull, v, off);
-    if (lane == 0) s_red[warp][a] = v;
-  }
+  for (int a = 0; a < 32; ++a) v[a] = a < kAcc ? acc[a] : 0.f;
+  fold<16>(v, lane);
+  fold<8>(v, lane);
+  fold<4>(v, lane);
+  fold<2>(v, lane);
+  fold<1>(v, lane);
+  s_red[warp][lane] = v[0];
   __syncthreads();
-  if (threadIdx.x < kAcc) {
-    float v = 0.f;
-    for (int w = 0; w < kWarps; ++w) v += s_red[w][threadIdx.x];
-    s_acc[threadIdx.x] = v;
-  }
-  __syncthreads();
+  float t = 0.f;
+  if (threadIdx.x < kAcc)
+    for (int w = 0; w < kWarps; ++w) t += s_red[w][threadIdx.x];
+  return t;
 }
 
 // x = solve(H + lam*(diag(H) + 1e-8 I), -g) by unpivoted elimination
@@ -194,10 +237,11 @@ __device__ void solve6(const float* h21, const float* g, float lam,
     a[i][i] = a[i][i] + lam * (a[i][i] + 1e-8f);
     rhs[i] = -g[i];
   }
+  float inv[6];
   for (int k = 0; k < 6; ++k) {
-    const float inv = 1.f / a[k][k];
+    inv[k] = 1.f / a[k][k];
     for (int i = k + 1; i < 6; ++i) {
-      const float f = a[i][k] * inv;
+      const float f = a[i][k] * inv[k];
       for (int jj = k + 1; jj < 6; ++jj) a[i][jj] = a[i][jj] - f * a[k][jj];
       rhs[i] = rhs[i] - f * rhs[k];
     }
@@ -205,88 +249,144 @@ __device__ void solve6(const float* h21, const float* g, float lam,
   for (int k = 5; k >= 0; --k) {
     float acc = rhs[k];
     for (int jj = k + 1; jj < 6; ++jj) acc = acc - a[k][jj] * x[jj];
-    x[k] = acc / a[k][k];
+    x[k] = acc * inv[k];
   }
 }
 
-__global__ void lm_kernel(const float* __restrict__ ef,
-                          const float* __restrict__ pf,
-                          const float* __restrict__ pose_in,
-                          float* __restrict__ out, int ne, int np,
-                          int n_iters, float delta, float lam0) {
-  __shared__ float s_red[kWarps][kAcc];
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// Rows [start, start + count) of a block's slice: n rows cut into
+// ceil(n / c) per rank (ops/lm.slices).
+__device__ __forceinline__ void slice_of(int n, int c, int rank, int* start,
+                                         int* count) {
+  const int per = (n + c - 1) / c;
+  *start = min(n, rank * per);
+  *count = min(n - *start, per);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    lm_kernel(const float* __restrict__ ef, const float* __restrict__ pf,
+              const float* __restrict__ pose_in, float* __restrict__ out,
+              int ne, int np, int n_iters, float delta, float lam0) {
+  extern __shared__ float s_fac[];  // the block's factor slice
+  __shared__ float s_red[kWarps][32];
+  // every block's 29 sums of the last two sweeps, written by their blocks
+  __shared__ float s_part[2][kMaxCluster][kAcc];
   __shared__ float s_acc[kAcc];
   __shared__ float s_pose[7];  // the pose the next sweep evaluates
-  const int b = blockIdx.x;
-  ef += (size_t)b * 10 * ne;
-  pf += (size_t)b * 8 * np;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / csize;
   const float* p0 = pose_in + (size_t)b * 8;
-  const bool lead = threadIdx.x == 0;
+  // this block has started; the matching wait comes before the first
+  // write into another block's shared memory, after the first sweep
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  // the solver state lives in thread 0's registers
+  // copy the slice once, every element in flight at once (4-byte
+  // cp.async): edge channels, then plane channels
+  int e0, me, q0, mp;
+  slice_of(ne, csize, rank, &e0, &me);
+  slice_of(np, csize, rank, &q0, &mp);
+  float* se = s_fac;
+  float* sp = s_fac + 10 * me;
+  const float* eg = ef + (size_t)b * 10 * ne + e0;
+  for (int c = 0; c < 10; ++c)
+    for (int t = threadIdx.x; t < me; t += kThreads)
+      copy4(se + c * me + t, eg + (size_t)c * ne + t);
+  const float* pg = pf + (size_t)b * 8 * np + q0;
+  for (int c = 0; c < 8; ++c)
+    for (int t = threadIdx.x; t < mp; t += kThreads)
+      copy4(sp + c * mp + t, pg + (size_t)c * np + t);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (threadIdx.x < 7) s_pose[threadIdx.x] = p0[threadIdx.x];
+  __syncthreads();  // the slice and the pose in place
+
+  // the solver state lives in thread 0 of every block: each block adds
+  // the same sums in the same order and so takes the same steps
+  const bool lead = threadIdx.x == 0;
   float pose[7], h[21], g[6], cost = 0.f, cost0 = 0.f, nfac = 0.f;
   float lam = lam0, n_clamp = 0.f, n_nan = 0.f;
+  bool finite = true, hit_clamp = false;
   if (lead)
-    for (int i = 0; i < 7; ++i) s_pose[i] = pose[i] = p0[i];
-  __syncthreads();
-  sweep(ef, ne, pf, np, s_pose, delta, s_red, s_acc);
-  if (lead) {
-    for (int i = 0; i < 21; ++i) h[i] = s_acc[i];
-    for (int i = 0; i < 6; ++i) g[i] = s_acc[21 + i];
-    cost = cost0 = s_acc[27];
-    nfac = s_acc[28];
-  }
+    for (int i = 0; i < 7; ++i) pose[i] = p0[i];
 
-  for (int it = 0; it < n_iters; ++it) {
-    bool finite = true, hit_clamp = false;
-    if (lead) {
-      float x[6];
-      solve6(h, g, lam, x);
-      for (int i = 0; i < 6; ++i) finite = finite && isfinite(x[i]);
-      for (int i = 0; i < 6; ++i) x[i] = finite ? x[i] : 0.f;
-      const float nth = sqrtf(x[0] * x[0] + x[1] * x[1] + x[2] * x[2]);
-      const float ntr = sqrtf(x[3] * x[3] + x[4] * x[4] + x[5] * x[5]);
-      const float sc_th = fminf(1.f, kMaxDtheta / fmaxf(nth, 1e-20f));
-      const float sc_tr = fminf(1.f, kMaxDt / fmaxf(ntr, 1e-20f));
-      hit_clamp = finite && (sc_th < 1.f || sc_tr < 1.f);
-      const float d0 = x[0] * sc_th, d1 = x[1] * sc_th, d2 = x[2] * sc_th;
-      // retract: q' = normalize(exp_so3(d) * q)
-      const float ts = d0 * d0 + d1 * d1 + d2 * d2;
-      const float theta = sqrtf(fmaxf(ts, 1e-12f));
-      const bool small = ts < 1e-8f;
-      const float k = small ? 0.5f - ts / 48.f : sinf(0.5f * theta) / theta;
-      const float ew = small ? 1.f - ts / 8.f : cosf(0.5f * theta);
-      const float ex = k * d0, ey = k * d1, ez = k * d2;
-      const float* q = pose;
-      float qn[4] = {ew * q[0] - ex * q[1] - ey * q[2] - ez * q[3],
-                     ew * q[1] + ex * q[0] + ey * q[3] - ez * q[2],
-                     ew * q[2] - ex * q[3] + ey * q[0] + ez * q[1],
-                     ew * q[3] + ex * q[2] - ey * q[1] + ez * q[0]};
-      const float inv = 1.f / fmaxf(sqrtf(qn[0] * qn[0] + qn[1] * qn[1] +
-                                          qn[2] * qn[2] + qn[3] * qn[3]),
-                                    1e-12f);
-      for (int i = 0; i < 4; ++i) s_pose[i] = qn[i] * inv;
-      for (int i = 0; i < 3; ++i) s_pose[4 + i] = pose[4 + i] + x[3 + i] * sc_tr;
+  for (int it = 0; it <= n_iters; ++it) {
+    const float v = sweep(se, me, sp, mp, s_pose, delta, s_red);
+    if (it == 0)  // every block of the cluster is running
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (threadIdx.x < kAcc)
+      for (int r = 0; r < csize; ++r)
+        cluster.map_shared_rank(&s_part[it & 1][rank][threadIdx.x], r)[0] = v;
+    cluster.sync();  // every block's sums in every block
+    if (threadIdx.x < kAcc) {
+      float t = 0.f;
+      for (int r = 0; r < csize; ++r) t += s_part[it & 1][r][threadIdx.x];
+      s_acc[threadIdx.x] = t;
     }
     __syncthreads();
-    sweep(ef, ne, pf, np, s_pose, delta, s_red, s_acc);
     if (lead) {
-      const bool accept = finite && s_acc[27] < cost;
-      if (accept) {
-        for (int i = 0; i < 7; ++i) pose[i] = s_pose[i];
+      if (it == 0) {
         for (int i = 0; i < 21; ++i) h[i] = s_acc[i];
         for (int i = 0; i < 6; ++i) g[i] = s_acc[21 + i];
-        cost = s_acc[27];
-        lam = fmaxf(lam / 3.f, 1e-7f);
+        cost = cost0 = s_acc[27];
+        nfac = s_acc[28];
       } else {
-        lam = fminf(lam * 10.f, 1e4f);
+        const bool accept = finite && s_acc[27] < cost;
+        if (accept) {
+          for (int i = 0; i < 7; ++i) pose[i] = s_pose[i];
+          for (int i = 0; i < 21; ++i) h[i] = s_acc[i];
+          for (int i = 0; i < 6; ++i) g[i] = s_acc[21 + i];
+          cost = s_acc[27];
+          lam = fmaxf(lam / 3.f, 1e-7f);
+        } else {
+          lam = fminf(lam * 10.f, 1e4f);
+        }
+        n_clamp += hit_clamp ? 1.f : 0.f;
+        n_nan += finite ? 0.f : 1.f;
       }
-      n_clamp += hit_clamp ? 1.f : 0.f;
-      n_nan += finite ? 0.f : 1.f;
+      if (it < n_iters) {
+        float x[6];
+        solve6(h, g, lam, x);
+        finite = true;
+        for (int i = 0; i < 6; ++i) finite = finite && isfinite(x[i]);
+        for (int i = 0; i < 6; ++i) x[i] = finite ? x[i] : 0.f;
+        const float nth = sqrtf(x[0] * x[0] + x[1] * x[1] + x[2] * x[2]);
+        const float ntr = sqrtf(x[3] * x[3] + x[4] * x[4] + x[5] * x[5]);
+        const float sc_th = fminf(1.f, kMaxDtheta / fmaxf(nth, 1e-20f));
+        const float sc_tr = fminf(1.f, kMaxDt / fmaxf(ntr, 1e-20f));
+        hit_clamp = finite && (sc_th < 1.f || sc_tr < 1.f);
+        const float d0 = x[0] * sc_th, d1 = x[1] * sc_th, d2 = x[2] * sc_th;
+        // retract: q' = normalize(exp_so3(d) * q)
+        const float ts = d0 * d0 + d1 * d1 + d2 * d2;
+        const float theta = sqrtf(fmaxf(ts, 1e-12f));
+        const bool small = ts < 1e-8f;
+        const float k = small ? 0.5f - ts / 48.f : sinf(0.5f * theta) / theta;
+        const float ew = small ? 1.f - ts / 8.f : cosf(0.5f * theta);
+        const float ex = k * d0, ey = k * d1, ez = k * d2;
+        const float* q = pose;
+        float qn[4] = {ew * q[0] - ex * q[1] - ey * q[2] - ez * q[3],
+                       ew * q[1] + ex * q[0] + ey * q[3] - ez * q[2],
+                       ew * q[2] - ex * q[3] + ey * q[0] + ez * q[1],
+                       ew * q[3] + ex * q[2] - ey * q[1] + ez * q[0]};
+        const float inv = 1.f / fmaxf(sqrtf(qn[0] * qn[0] + qn[1] * qn[1] +
+                                            qn[2] * qn[2] + qn[3] * qn[3]),
+                                      1e-12f);
+        for (int i = 0; i < 4; ++i) s_pose[i] = qn[i] * inv;
+        for (int i = 0; i < 3; ++i)
+          s_pose[4 + i] = pose[4 + i] + x[3 + i] * sc_tr;
+      }
     }
+    __syncthreads();  // the next pose, for the next sweep
   }
 
-  if (lead) {
+  if (lead && rank == 0) {
     bool pose_ok = true;
     for (int i = 0; i < 7; ++i) pose_ok = pose_ok && isfinite(pose[i]);
     float* o = out + (size_t)b * 12;
@@ -303,13 +403,43 @@ __global__ void lm_kernel(const float* __restrict__ ef,
 
 // ef (bsz, 10, ne) f32, pf (bsz, 8, np) f32, pose (bsz, 8) f32
 // [qw qx qy qz tx ty tz 0], out (bsz, 12) f32 [q(4) t(3) cost0 cost
-// n_factors clamped nonfinite]; all contiguous. Returns the cudaError_t of
-// the launch.
+// n_factors clamped nonfinite]; all contiguous. One cluster of `cluster`
+// blocks (1..8) per stream. Returns the cudaError_t of the launch (a
+// refused cluster or shared-memory request included).
 extern "C" int aloam_lm_solve(const float* ef, const float* pf,
                               const float* pose, float* out, int bsz, int ne,
                               int np, int n_iters, float delta, float lam0,
-                              void* stream) {
+                              int cluster, void* stream) {
   if (bsz <= 0) return 0;
-  lm_kernel<<<bsz, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(ef, pf, pose, out, ne, np, n_iters, delta, lam0);
+  if (cluster < 1 || cluster > kMaxCluster || ne < 0 || np < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_e = (ne + cluster - 1) / cluster;
+  const int per_p = (np + cluster - 1) / cluster;
+  const size_t smem = (10 * (size_t)per_e + 8 * (size_t)per_p) * sizeof(float);
+  // dynamic shared memory past 48 KB must be asked for first
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bsz * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, lm_kernel, ef, pf, pose,
+                                             out, ne, np, n_iters, delta,
+                                             lam0);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,7 +42,7 @@ SIGNATURES = {
                            _P),
     "aloam_odom_window": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _I, _I, _I,
                                       _P),
-    "aloam_lm_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "aloam_lm_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
     "aloam_assoc_cell": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                          _F, _P),
     "aloam_merge_tiles": (_P,) * 17 + (_I, _I, _I, _I, _F, _F, _P),

@@ -3,11 +3,13 @@
 Port of ``aloam_tpu/ops/pallas_assoc.py``: per cell-sorted query, pick its
 cell's candidate row, run the gated 5-NN select, then the PCA line fit
 (corner) or the plane fit (surf) of laserMapping.cpp:577-705, and emit 8
-floats. The CUDA kernel is ``csrc/assoc.cu`` (one warp per query, its
-select shared with ``csrc/knn.cu``). The plain version beside it is the
-JAX package's XLA path: a per-query row gather with the 5-pass select
-(``ops/knn.knn_select_plain``, called as the plain version on every
-device), then :func:`assoc_xla`.
+floats. The CUDA kernel is ``csrc/assoc.cu``: a warp owns 8 queries,
+stages the row of each run of queries that share a cell once in shared
+memory, selects two queries of a run at once with the lanes spread over
+the candidates, and then fits one query per lane. The plain version
+beside it is the JAX package's XLA path: a per-query row gather with the
+5-pass select (``ops/knn.knn_select_plain``, called as the plain version
+on every device), then :func:`assoc_xla`.
 
 Packed output columns, (N, 8) f32 for both kinds:
   corner: [ax, ay, az, bx, by, bz, ok, d2_4]
@@ -141,6 +143,9 @@ def assoc_cell(cand_flat: torch.Tensor, cid0: torch.Tensor, q8: torch.Tensor,
                          f"cid0 {tuple(cid0.shape)}, q8 {tuple(q8.shape)}, "
                          f"tq {tq}")
     win = (cspan if 0 < cspan <= tq else tq) + 8
+    if cand_flat.data_ptr() % 16:
+        # the kernel stages rows 16 bytes at a time from aligned addresses
+        cand_flat = cand_flat.clone()
     out = torch.empty((n, OUT_W), dtype=torch.float32, device=q8.device)
     _build.launch("aloam_assoc_cell", q8.device, cand_flat.data_ptr(),
                   cid0.data_ptr(), q8.data_ptr(), out.data_ptr(),

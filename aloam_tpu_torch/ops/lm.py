@@ -1,10 +1,13 @@
 """One-launch Levenberg-Marquardt solve (kernel module).
 
 Port of ``aloam_tpu/ops/pallas_lm.py:lm_fused``. The CUDA kernel is
-``csrc/lm.cu`` (one block per stream runs every sweep, 6x6 solve,
-retraction and accept/reject of the solve). The plain version beside it
-unpacks the channels and runs ``solver.lm_solve``, the batched PyTorch
-form of the same solve with ``torch.linalg.solve_ex``.
+``csrc/lm.cu``: one thread block cluster per stream runs every sweep, each
+block over its own slice of the factor rows held in shared memory; the
+blocks exchange their sums through distributed shared memory, and each
+solves the 6x6, retracts and decides on the same sums. :func:`launch_plan`
+picks the cluster size from the batch and the card's SM count. The plain
+version beside it unpacks the channels and runs ``solver.lm_solve``, the
+batched PyTorch form of the same solve with ``torch.linalg.solve_ex``.
 
 Factor channels are planar, (B, 10, Ne) edges [px py pz ax ay az bx by bz
 mask] and (B, 8, Np) planes [px py pz nx ny nz d mask]; any Ne, Np (the
@@ -28,6 +31,41 @@ OUT_NFAC = 9
 OUT_CLAMP = 10
 OUT_NAN = 11
 N_OUT = 12
+
+MAX_CLUSTER = 8  # the portable cluster size on sm_90
+# shared memory a block may give its factor slice (of the 227 KB a block
+# may use; the kernel's static buffers take ~1.3 KB)
+SLICE_BYTES = 200 * 1024
+
+
+def slices(n: int, cluster: int) -> list[tuple[int, int]]:
+    """Rows [start, stop) of each rank's slice of n rows, as
+    ``csrc/lm.cu:slice_of`` cuts them: ceil(n / cluster) a rank, the last
+    ones short or empty."""
+    per = -(-n // cluster)
+    return [(min(n, r * per), min(n, r * per + per)) for r in range(cluster)]
+
+
+def _slice_bytes(ne: int, np_: int, cluster: int) -> int:
+    return 4 * (10 * -(-ne // cluster) + 8 * -(-np_ // cluster))
+
+
+def launch_plan(bsz: int, ne: int, np_: int, n_sm: int) -> int:
+    """The cluster size of a launch: as many blocks a stream as keep all
+    blocks within three quarters of the SMs (8 up to B = 12 on 132 SMs, 6
+    at B = 16, 3 at B = 32, 1 from B = 3/4 n_sm on), raised until a
+    block's slice fits its shared memory. A cluster's blocks must share a
+    GPC: 16 clusters of 8 on a 132-SM H100 do not all fit one block to an
+    SM, and ran 11% slower than 16 clusters of 6 (PERF.md §6). Raises
+    ValueError when even 8 blocks cannot hold a stream's factors."""
+    cluster = max(1, min(MAX_CLUSTER, 3 * n_sm // 4 // max(bsz, 1)))
+    while _slice_bytes(ne, np_, cluster) > SLICE_BYTES \
+            and cluster < MAX_CLUSTER:
+        cluster += 1
+    if _slice_bytes(ne, np_, cluster) > SLICE_BYTES:
+        raise ValueError(f"lm_fused: {ne} edge and {np_} plane factors a "
+                         f"stream exceed {MAX_CLUSTER} blocks' shared memory")
+    return cluster
 
 
 def pack_edge_channels(edges) -> torch.Tensor:
@@ -75,10 +113,12 @@ def lm_fused(ef: torch.Tensor, pf: torch.Tensor, pose: torch.Tensor,
             or tuple(pose.shape) != (bsz, 8):
         raise ValueError(f"lm_fused: ef {tuple(ef.shape)}, pf "
                          f"{tuple(pf.shape)}, pose {tuple(pose.shape)}")
+    ne, np_ = ef.shape[2], pf.shape[2]
+    cluster = launch_plan(bsz, ne, np_, _build.sm_count(ef.device))
     out = torch.empty((bsz, N_OUT), dtype=torch.float32, device=ef.device)
     _build.launch("aloam_lm_solve", ef.device, ef.data_ptr(), pf.data_ptr(),
-                  pose.data_ptr(), out.data_ptr(), bsz, ef.shape[2],
-                  pf.shape[2], int(n_iters), float(delta), float(lam0))
+                  pose.data_ptr(), out.data_ptr(), bsz, ne, np_,
+                  int(n_iters), float(delta), float(lam0), cluster)
     global launches
     launches += 1
     return out

@@ -30,6 +30,12 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    and last rings, with and without ``ring_seg``;
    rows without heads across many tiles, heads only at tile boundaries,
    a row length that is not a multiple of 4, 70000 short rows);
+   ``assoc_cell`` bit-equal to its plain version on adversarial tiles
+   (one row for all 256 queries, a row per query, all poisoned, the
+   cell-window edge, degenerate fits, n not a multiple of 32) and
+   ``lm_fused`` within its tolerance, counts exact and bit-equal from
+   launch to launch (B = 1, 16, 32; no edges; no planes; an all-masked
+   stream; a NaN factor; counts not divisible by the cluster size);
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
    kernels (its four launch counters must rise, and every odometry search
    must declare ``ring_seg`` > 0) and with the plain versions; per-frame
@@ -281,9 +287,11 @@ def run_frames(step, pipeline, cfg, frames, device, batch=B):
 
 
 def absdiff(got, want):
-    """|got - want| with equal entries (inf included) at 0."""
+    """|got - want| with equal entries (inf included) and NaN in both at
+    0."""
     import torch
-    return torch.where(got == want, 0.0, (got.double() - want.double()).abs())
+    same = (got == want) | (got.isnan() & want.isnan())
+    return torch.where(same, 0.0, (got.double() - want.double()).abs())
 
 
 def compare(name, got, want, kind=None):
@@ -298,7 +306,8 @@ def compare(name, got, want, kind=None):
                              rounded operations in the same order;
       lm_fused               q atol 2e-5, t atol 2e-4, cost0 rtol 2e-4,
                              cost rtol 2e-3, counts exact (reduction order
-                             and unpivoted elimination vs LU);
+                             and unpivoted elimination vs LU); a NaN in
+                             both agrees;
       assoc_cell             ok flags differ on at most 1 query in 10^4 and
                              columns of queries live in both within 1e-4:
                              d2, select and fit are the same rounded
@@ -331,7 +340,8 @@ def compare(name, got, want, kind=None):
             and live.sum().item() > 0
     else:
         d = absdiff(got, want)
-        rel = d[:, 7:9] / want[:, 7:9].abs().clamp_min(1e-12)
+        rel = torch.where(d[:, 7:9] == 0, 0.0,
+                          d[:, 7:9] / want[:, 7:9].abs().clamp_min(1e-12))
         err = d[:, :7].max().item()
         ok = (d[:, 0:4].max() <= 2e-5 and d[:, 4:7].max() <= 2e-4
               and rel[:, 0].max() <= 2e-4 and rel[:, 1].max() <= 2e-3
@@ -629,6 +639,186 @@ def check_adversarial(mods, device, results, card):
     for name, err in (("window_mins", worst),
                       ("segmented_prefix_sums", worst_scan)):
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+
+def assoc_rows(rng, n_rows: int, bw: int):
+    """(n_rows, 24 bw) f32 block-planar candidate rows and (n_rows, 3) row
+    centres: row r holds 6 to 8 bw points in scattered slots (the rest
+    empty at 1e9, the map's sentinel) around its centre, on a plane for
+    even r and along a line for odd r; candidate j = block·bw + e has its
+    x at block·3bw + e, its y at +bw, its z at +2bw."""
+    pts = np.full((n_rows, 8 * bw, 3), 1e9, np.float32)
+    centres = rng.uniform(-50, 50, (n_rows, 3)).astype(np.float32)
+    for r in range(n_rows):
+        cnt = int(rng.integers(6, 8 * bw + 1))
+        u, v = np.linalg.qr(rng.normal(size=(3, 3)))[0][:, :2].T
+        spread = rng.uniform(-0.8, 0.8, (cnt, 2))
+        if r % 2:
+            spread[:, 1] = 0.0
+        p = centres[r] + spread @ np.stack([u, v]) \
+            + rng.normal(0, 0.01, (cnt, 3))
+        pts[r, rng.choice(8 * bw, cnt, replace=False)] = p
+    rows = pts.reshape(n_rows, 8, bw, 3).transpose(0, 1, 3, 2)
+    return rows.reshape(n_rows, 24 * bw).copy(), centres
+
+
+def assoc_q8(rng, centres, tiles, tq: int, n: int):
+    """(cid0 (T,) i32, q8 (n, 8) f32) for tiles [(cid0, locals (tq,),
+    poison (tq,))]: each query 0.3 m around its row's centre."""
+    cid0 = np.array([t[0] for t in tiles], np.int32)
+    q8 = np.zeros((len(tiles) * tq, 8), np.float32)
+    for k, (c0, local, poison) in enumerate(tiles):
+        rows = slice(k * tq, (k + 1) * tq)
+        q8[rows, :3] = centres[c0 + local] + rng.normal(0, 0.3, (tq, 3))
+        q8[rows, 3] = poison
+        q8[rows, 4] = local
+    return cid0, q8[:n]
+
+
+def check_adversarial_assoc(mods, device, results, card):
+    """Phase 4, third part: assoc_cell bit-equal to its plain version, both
+    kinds, on a table of plane and line rows: a tile whose 256 queries all
+    share one row; a tile with a row per query; all-poisoned tiles; queries
+    at local + rem == win - 1 and == win with assoc_cspan 128 (win 136);
+    rows of six equal points (a degenerate fit: a zero covariance, so the
+    corner eigenvector's norm is <= 1e-8 and the fit falls back to the x
+    axis); and n = 589, not a multiple of the 32 queries a block of the
+    kernel takes, over tiles of ~4 queries a row."""
+    import torch
+    mod = mods["assoc_cell"]
+    rng = np.random.default_rng(5)
+    tq, n_rows = 256, 1024
+    ramp = np.arange(tq) * 140 // (tq - 1)
+    edge = np.sort(np.concatenate([np.arange(133), np.full(60, 132),
+                                   np.full(63, 133)]))
+    zero, ones = np.zeros(tq), np.ones(tq)
+    typical = [(c0, np.sort(rng.integers(0, 64, tq)), rng.uniform(size=tq)
+                < 0.3) for c0 in (100, 300, 500)]
+    cases = {
+        "one row": ([(10, np.zeros(tq, int), zero)], tq, 0),
+        "a row per query": ([(16, np.arange(tq), zero)], tq, 0),
+        "all poisoned": ([(40, ramp, ones), (600, ramp, ones)], 2 * tq, 0),
+        "window edge": ([(43, edge, zero)], tq, 128),
+        "degenerate": ([(800, ramp // 8, zero)], tq, 0),
+        "n = 589": (typical, 589, 128),
+    }
+    worst = 0.0
+    for kind, bw in (("surf", 48), ("corner", 32)):
+        rows, centres = assoc_rows(rng, n_rows, bw)
+        # rows 800-817: six equal points at the centre, the rest empty
+        for r in range(800, 818):
+            pts = np.full((8 * bw, 3), 1e9, np.float32)
+            pts[rng.choice(8 * bw, 6, replace=False)] = centres[r]
+            rows[r] = pts.reshape(8, bw, 3).transpose(0, 2, 1).reshape(-1)
+        cand = torch.from_numpy(rows).to(device)
+        for label, (tiles, n, cspan) in cases.items():
+            cid0, q8 = assoc_q8(rng, centres, tiles, tq, n)
+            args = (cand, torch.from_numpy(cid0).to(device),
+                    torch.from_numpy(q8).to(device), kind, 1.0)
+            kw = dict(plane_tol=0.2, eigen_ratio=3.0, half_len=0.1, tq=tq,
+                      cspan=cspan)
+            got = mod.assoc_cell(*args, **kw)
+            want = mod.assoc_cell_plain(*args, **kw)
+            worst = max(worst, absdiff(got, want).max().item())
+            if not torch.equal(got, want):
+                fail(f"assoc_cell {kind} {label}: kernel differs from its "
+                     f"plain version (max abs err "
+                     f"{absdiff(got, want).max().item():.6g})")
+            okc = 4 if kind == "surf" else 6
+            live = int((want[:, 7 if kind == "corner" else 5] < 1.0).sum())
+            say(f"[adversarial] assoc_cell {kind} {label}: {n} queries, "
+                f"{live} pass the gate, {int(want[:, okc].sum())} ok: "
+                f"bit-equal to plain ({card})")
+            if label == "window edge":
+                # local 132 (rem 3) is the window's last row, 133 past it
+                local, d4 = args[2][:, 4], got[:, okc + 1]
+                if not (torch.isinf(d4[local == 133]).all()
+                        and (d4[local == 132] < 1.0).any()):
+                    fail(f"assoc_cell {kind}: the window edge is misplaced")
+            if label == "degenerate" and kind == "corner" and not bool(
+                    (got[:, 0] - got[:, 3] > 0.19).all()):
+                fail("assoc_cell corner: degenerate fits must fall back to "
+                     "the x axis")
+    results["assoc_cell"]["max_abs_err"] = max(
+        results["assoc_cell"]["max_abs_err"], worst)
+
+
+def lm_inputs(rng, bsz: int, ne: int, npl: int, live: float = 0.7):
+    """(ef (B, 10, Ne), pf (B, 8, Np), pose (B, 8)) f32: edge and plane
+    factors of unit scale near a pose a little off the identity, a share
+    ``live`` of them live, the masked ones poisoned (inf points on edges,
+    NaN on planes), as tests/test_pallas_lm.py makes them."""
+    e_p = rng.normal(scale=8.0, size=(bsz, ne, 3))
+    e_a = e_p + rng.normal(scale=0.05, size=(bsz, ne, 3))
+    dirs = rng.normal(size=(bsz, ne, 3))
+    e_b = e_a + 0.4 * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    e_m = rng.random((bsz, ne)) < live
+    e_p[~e_m] = np.inf
+    p_p = rng.normal(scale=8.0, size=(bsz, npl, 3))
+    nrm = rng.normal(size=(bsz, npl, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    d = -np.sum(nrm * p_p, axis=-1) + rng.normal(scale=0.02, size=(bsz, npl))
+    p_m = rng.random((bsz, npl)) < live
+    p_p[~p_m] = np.nan
+    ef = np.concatenate([e_p, e_a, e_b, e_m[..., None]], -1)
+    pf = np.concatenate([p_p, nrm, d[..., None], p_m[..., None]], -1)
+    q = np.tile([0.999, 0.02, -0.03, 0.01], (bsz, 1))
+    pose = np.concatenate([q / np.linalg.norm(q, axis=1, keepdims=True),
+                           rng.normal(scale=0.1, size=(bsz, 3)),
+                           np.zeros((bsz, 1))], 1)
+    return (np.ascontiguousarray(ef.transpose(0, 2, 1), np.float32),
+            np.ascontiguousarray(pf.transpose(0, 2, 1), np.float32),
+            pose.astype(np.float32))
+
+
+def check_adversarial_lm(mods, device, results, card):
+    """Phase 4, fourth part: lm_fused within its tolerance of its plain
+    version, counts exact, and bit-equal to itself on a second launch, at
+    B = 1, 16 and 32 with the map solve's 3072 + 4096 factors (clusters of
+    8, 6 and 3 blocks on 132 SMs); no edges; no planes; factor counts not
+    divisible by the cluster (3071 + 4093, and 5 + 7 live factors, fewer
+    rows than blocks). In the B = 16 case stream 3 has every factor masked (pose
+    unchanged, n_factors 0) and stream 5 one live plane factor at NaN
+    (every step non-finite: nonfinite = n_iters, the pose unchanged)."""
+    import torch
+    from aloam_tpu_torch.ops import _build
+    mod = mods["lm_fused"]
+    rng = np.random.default_rng(11)
+    n_iters = 4
+    cases = {"B=1": (1, 3072, 4096), "B=16": (16, 3072, 4096),
+             "B=32": (32, 3072, 4096), "no edges": (4, 0, 4096),
+             "no planes": (4, 3072, 0), "uneven": (3, 3071, 4093),
+             "fewer rows than blocks": (2, 5, 7)}
+    worst = 0.0
+    for label, (bsz, ne, npl) in cases.items():
+        ef, pf, pose = lm_inputs(rng, bsz, ne, npl,
+                                 1.0 if label.startswith("fewer") else 0.7)
+        if label == "B=16":
+            ef[3, 9] = 0.0
+            pf[3, 7] = 0.0
+            pf[5, :3, 0] = np.nan
+            pf[5, 7, 0] = 1.0
+        ef, pf, pose = (torch.from_numpy(a).to(device) for a in (ef, pf,
+                                                                 pose))
+        got = mod.lm_fused(ef, pf, pose, n_iters, 0.1)
+        again = mod.lm_fused(ef, pf, pose, n_iters, 0.1)
+        want = mod.lm_fused_plain(ef, pf, pose, n_iters, 0.1)
+        worst = max(worst, compare("lm_fused", got, want))
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            fail(f"lm_fused {label}: two launches on the same inputs differ")
+        if label == "B=16" and not (
+                got[3, 9] == 0 and torch.equal(got[3, :7], pose[3, :7])
+                and got[5, 11] == n_iters
+                and torch.equal(got[5, :7], pose[5, :7])):
+            fail(f"lm_fused: the all-masked or the NaN stream moved: "
+                 f"{got[[3, 5]].tolist()}")
+        cluster = mod.launch_plan(bsz, ne, npl, _build.sm_count(device))
+        say(f"[adversarial] lm_fused {label}: B={bsz}, {ne} edges + {npl} "
+            f"planes, cluster {cluster}: within tolerance of plain, counts "
+            f"exact, two launches bit-equal; nonfinite "
+            f"{got[:, 11].int().tolist()[:6]} ({card})")
+    results["lm_fused"]["max_abs_err"] = max(
+        results["lm_fused"]["max_abs_err"], worst)
 
 
 @contextlib.contextmanager
@@ -1023,6 +1213,8 @@ def main() -> None:
             for name, spec in KERNELS.items()}
     results = check_kernels(pipeline, mods, cfg, frames, device, card)
     check_adversarial(mods, device, results, card)
+    check_adversarial_assoc(mods, device, results, card)
+    check_adversarial_lm(mods, device, results, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
     launches, st_b = run_step(pipeline, mods, cfg, frames, gt, device, card)
 

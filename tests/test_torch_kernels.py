@@ -468,6 +468,42 @@ def test_lm_any_factor_count(rng):
     np.testing.assert_array_equal(st.n_factors.numpy(), st2.n_factors.numpy())
 
 
+@pytest.mark.parametrize("bsz", [1, 16, 32])
+def test_lm_launch_plan_covers_every_row(bsz):
+    """ops/lm.launch_plan on a 132-SM card: a cluster of at most 8 blocks
+    a stream (8 at B = 1, 6 at B = 16, 3 at B = 32) whose slices, laid out
+    on the grid as csrc/lm.cu cuts them (block = stream · cluster + rank),
+    cover every edge and plane row of every stream exactly once and fit a
+    block's shared memory."""
+    counts = (0, 1, 768, 3072, 4096, 7168)
+    for ne in counts:
+        for np_ in counts:
+            cluster = lm_op.launch_plan(bsz, ne, np_, 132)
+            assert 1 <= cluster <= lm_op.MAX_CLUSTER == 8
+            assert cluster == {1: 8, 16: 6, 32: 3}[bsz]
+            assert lm_op._slice_bytes(ne, np_, cluster) <= lm_op.SLICE_BYTES
+            for n in (ne, np_):
+                seen = np.zeros((bsz, n), int)
+                for block in range(bsz * cluster):
+                    start, stop = lm_op.slices(n, cluster)[block % cluster]
+                    assert 0 <= start <= stop <= n
+                    seen[block // cluster, start:stop] += 1
+                assert (seen == 1).all()
+    assert lm_op.launch_plan(12, 3072, 4096, 132) == 8
+    assert lm_op.launch_plan(200, 768, 1536, 132) == 1
+    # one block cannot hold a map solve's 254 KB of factors: two can
+    assert lm_op.launch_plan(200, 3072, 4096, 132) == 2
+
+
+def test_lm_launch_plan_raises_past_shared_memory():
+    """A stream whose factors overflow 8 blocks' shared memory is refused
+    with an error, not cut or sent down another path; a stream whose
+    factors need more blocks than the batch leaves per SM gets them."""
+    with pytest.raises(ValueError, match="shared memory"):
+        lm_op.launch_plan(1, 50000, 50000, 132)
+    assert lm_op.launch_plan(200, 12000, 12000, 132) == 5
+
+
 # --- primitives and the wrappers' dispatch ----------------------------------
 
 def test_geometry_matches_jax(rng):
