@@ -45,7 +45,7 @@ SIGNATURES = {
     "aloam_lm_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
     "aloam_assoc_cell": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                          _F, _P),
-    "aloam_merge_tiles": (_P,) * 17 + (_I, _I, _I, _I, _F, _F, _P),
+    "aloam_merge_rows": (_P,) * 12 + (_I,) * 5 + (_F, _F, _P),
     "aloam_knn_select": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 

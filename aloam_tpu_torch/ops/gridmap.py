@@ -18,7 +18,8 @@ Layout, unchanged from the JAX package so states compare bit for bit:
 5·Bk)`` i32 planar [intensity bits | cx | cy | cz | voxel id].
 
 The port updates the tables in place (``evict_and_count`` and the insert's
-scatter-back): a state passed to the mapping step is consumed.
+merge, ``ops/insert.merge_rows``): a state passed to the mapping step is
+consumed.
 """
 
 from __future__ import annotations
@@ -66,13 +67,6 @@ class GridMap(NamedTuple):
     def cell(self) -> torch.Tensor:    # (..., 3·Bk) i32 cell coordinates
         return self._auxv()[..., 1:4, :].reshape(
             self.aux.shape[:-1] + (3 * self.bucket_cap,))
-
-
-def _pack_aux(inten, cx, cy, cz, vox) -> torch.Tensor:
-    """(..., Bk) planes -> (..., 5·Bk) planar aux rows."""
-    planes = torch.stack([inten.contiguous().view(torch.int32), cx, cy, cz,
-                          vox], dim=-2)
-    return planes.reshape(planes.shape[:-2] + (5 * planes.shape[-1],))
 
 
 def empty(batch: int, table_size: int, bucket_cap: int,
@@ -300,9 +294,9 @@ def insert_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
     pts (B, N, 3), inten and mask (B, N), center (B, 3) pose cells,
     window (3,) half-extent in cells.
 
-    Points are sorted by bucket; each touched bucket is gathered once, its
-    points (≤ point_cap) are merged or appended against its slots
-    (ops/insert.py), and the bucket is written back. Matching is on the
+    Points are sorted by bucket; each touched bucket's points (≤
+    point_cap) are merged or appended against its slots in place
+    (ops/insert.merge_rows). Matching is on the
     voxel id; a merge takes the midpoint; appends fill slots in eviction
     order (empty < out-of-window < in-window, farthest first). Returns
     (grid, merged, appended, evicted, dropped), each (B,); dropped counts
@@ -329,7 +323,6 @@ def _insert_sorted(grid: GridMap, key_s, px_s, py_s, pz_s, pi_s, vox_s,
     bsz, n = key_s.shape
     dev = key_s.device
     table_size = grid.aux.shape[1]
-    bk = grid.bucket_cap
     cap_c, cap_p = touched_cap, point_cap
     valid_s = key_s < table_size
 
@@ -340,67 +333,40 @@ def _insert_sorted(grid: GridMap, key_s, px_s, py_s, pz_s, pi_s, vox_s,
     head = torch.where(seg, iota_n, -1).cummax(dim=1).values
     rank = iota_n - head
     keep = valid_s & (cid_s >= 0) & (cid_s < cap_c) & (rank < cap_p)
-    cid_c = torch.where(keep, cid_s, cap_c)
 
-    # --- dense per-bucket point lists: flat scatters with spare slots -----
-    # (row cap_c of each stream, and one slot past the end) sliced off
-    # after; every kept point has its own slot, so no two writes collide
-    # outside the spares
-    coff = torch.arange(bsz, device=dev)[:, None] * (cap_c + 1)
-    brow = cid_c + coff                                      # (B, N)
-    flat_np = bsz * (cap_c + 1) * cap_p
-    ppos = torch.where(keep, brow * cap_p + rank.clamp_max(cap_p - 1),
-                       flat_np).reshape(-1)
+    # --- dense per-bucket point lists: flat scatters with one spare slot --
+    # at the end, sliced off after; every kept point has its own slot, so
+    # no two writes collide outside the spare. Row r of stream b is flat
+    # row b * cap_c + r, so the lists come out contiguous.
+    n_rows = bsz * cap_c
+    coff = torch.arange(bsz, device=dev)[:, None] * cap_c
+    brow = torch.where(keep, cid_s + coff, n_rows)           # (B, N)
+    flat_np = n_rows * cap_p
+    ppos = torch.where(keep, brow * cap_p + rank, flat_np).reshape(-1)
 
     def scat(vals, dtype):
         buf = torch.zeros((flat_np + 1,), dtype=dtype, device=dev)
         buf[ppos] = vals.reshape(-1)
-        return buf[:flat_np].view(bsz, cap_c + 1, cap_p)[:, :cap_c]
+        return buf[:flat_np].view(bsz, cap_c, cap_p)
 
-    ppx, ppy, ppz, ppi = (scat(torch.where(keep, v, 0.0), torch.float32)
+    ppx, ppy, ppz, ppi = (scat(v, torch.float32)
                           for v in (px_s, py_s, pz_s, pi_s))
     pvox = scat(vox_s, torch.int32)
-    cnt = torch.zeros((bsz * (cap_c + 1),), dtype=torch.int32, device=dev)
+    cnt = torch.zeros((n_rows + 1,), dtype=torch.int32, device=dev)
     cnt.index_add_(0, brow.reshape(-1), keep.to(torch.int32).reshape(-1))
-    cnt = cnt.view(bsz, cap_c + 1)[:, :cap_c]
-    # each kept row of a bucket writes that bucket's id
-    slot_h = torch.zeros((bsz * (cap_c + 1),), dtype=torch.int64,
-                         device=dev)
-    slot_h[brow.reshape(-1)] = key_s.reshape(-1).to(torch.int64)
-    slot_h = slot_h.view(bsz, cap_c + 1)[:, :cap_c]
-    # cids are dense, so the used rows are a prefix of each stream's rows
-    used = cnt > 0                                           # (B, C)
+    cnt = cnt[:n_rows].view(bsz, cap_c)
+    # each kept row of a bucket writes that bucket's id; cids are dense,
+    # so the used rows (cnt > 0) are a prefix of each stream's rows and
+    # name distinct buckets
+    slot_h = torch.zeros((n_rows + 1,), dtype=torch.int32, device=dev)
+    slot_h[brow.reshape(-1)] = key_s.reshape(-1)
+    slot_h = slot_h[:n_rows].view(bsz, cap_c)
 
-    # --- gather touched-bucket tiles (two row gathers: pts and aux) -------
-    pts_tile = bgather(grid.pts, slot_h)                     # (B, C, 3Bk)
-    av = bgather(grid.aux, slot_h).view(bsz, cap_c, 5, bk)
-    s_int = av[:, :, 0].contiguous().view(torch.float32)
-    cell_tile = av[:, :, 1:4].reshape(bsz, cap_c, 3 * bk)
-    vox_tile = av[:, :, 4].contiguous()
-
-    # --- merge and eviction-priority appends (kernel module) --------------
-    (s_px, s_py, s_pz, s_int, s_cx, s_cy, s_cz, s_vox,
-     merged_pb, appended_pb, evicted_pb) = insert_op.merge_tiles(
-        pts_tile.contiguous(), s_int, cell_tile.contiguous(), vox_tile,
-        ppx.contiguous(), ppy.contiguous(), ppz.contiguous(),
-        ppi.contiguous(), pvox.contiguous(), cnt.contiguous(),
+    # --- merge and eviction-priority appends, in place (kernel module) ----
+    merged_pb, appended_pb, evicted_pb = insert_op.merge_rows(
+        grid.pts, grid.aux, slot_h, cnt, ppx, ppy, ppz, ppi, pvox,
         center.to(torch.int32).contiguous(),
         window.to(torch.int32).contiguous(), cell_size, leaf)
-
-    # --- write the used tiles back, in place ------------------------------
-    # An unused row (cnt 0) comes back unchanged; it is redirected to the
-    # stream's row 0 with row 0's values, so every duplicate index writes
-    # identical bytes and the copy order does not matter.
-    new_pts = torch.stack([s_px, s_py, s_pz], dim=2).view(bsz, cap_c, -1)
-    new_aux = _pack_aux(s_int, s_cx, s_cy, s_cz, s_vox)
-    dest = torch.where(used, slot_h, slot_h[:, :1]) \
-        + torch.arange(bsz, device=dev)[:, None] * table_size
-    new_pts = torch.where(used[..., None], new_pts, new_pts[:, :1])
-    new_aux = torch.where(used[..., None], new_aux, new_aux[:, :1])
-    grid.pts.view(bsz * table_size, -1).index_copy_(
-        0, dest.reshape(-1), new_pts.reshape(bsz * cap_c, -1))
-    grid.aux.view(bsz * table_size, -1).index_copy_(
-        0, dest.reshape(-1), new_aux.reshape(bsz * cap_c, -1))
 
     merged = merged_pb.sum(dim=1)
     appended = appended_pb.sum(dim=1)

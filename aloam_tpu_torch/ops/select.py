@@ -1,11 +1,14 @@
 """Greedy sharp/flat feature selection (kernel module).
 
 Port of ``aloam_tpu/ops/pallas_select.py:select_rings``. The CUDA kernel
-is ``csrc/select.cu`` (one block per ring row, the 144 sequential picks
-in shared memory). The plain version beside it runs the same walk on all
-rows at once: each pick is one masked extremum over the (R', C) grid,
-ties to the lowest index, then the closed-form gap-stopped NMS mark of
-``aloam_tpu/frontend/features._select_rings``.
+is ``csrc/select.cu``: one block per ring row stages the row in shared
+memory, and a warp walks each region's 24 sequential picks, each lane
+caching the best of its own columns; the regions are walked at once and
+checked in order afterwards (a region whose walk met the marks of the one
+before is walked again). The plain version beside it runs the same walk
+on all rows at once: each pick is one masked extremum over the (R', C)
+grid, ties to the lowest index, then the closed-form gap-stopped NMS mark
+of ``aloam_tpu/frontend/features._select_rings``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,27 @@ import torch
 from aloam_tpu_torch.ops import _build
 
 launches = 0  # kernel launches since the last reset
+
+MAX_REGIONS = 16            # regions a row, a warp each (csrc/select.cu)
+SMEM_BYTES = 227 * 1024     # the shared memory a block may use
+
+
+def row_bytes(c: int) -> int:
+    """Shared memory of one staged row, as ``csrc/select.cu:row_bytes``
+    counts it: a key and a bcum int and a label byte a column, rounded up
+    to 16 bytes."""
+    return (9 * c + 15) // 16 * 16
+
+
+def check_launch(c: int, n_regions: int) -> None:
+    """Raise ValueError for a row the kernel cannot take: one block stages
+    a whole row in shared memory and gives each region a warp."""
+    if row_bytes(c) > SMEM_BYTES:
+        raise ValueError(f"select_rings: a row of {c} columns needs "
+                         f"{row_bytes(c)} bytes of shared memory")
+    if not 0 <= n_regions <= MAX_REGIONS:
+        raise ValueError(f"select_rings: {n_regions} regions a row, at most "
+                         f"{MAX_REGIONS}")
 
 
 def select_rings_plain(curv, bcum, spep, n_regions: int, max_sharp: int,
@@ -63,7 +87,9 @@ def select_rings(curv: torch.Tensor, bcum: torch.Tensor, spep: torch.Tensor,
     """curv (R', C) f32; bcum (R', C) int32 bad-gap prefix counts; spep
     (R', 2*n_regions) f32 [sp... | ep...] (ep = -1 disables a region).
     Returns label (R', C) int32: 2 sharp, 1 less-sharp, -1 flat, 0 other.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (:func:`check_launch`: a row within a block's shared memory, at most
+    ``MAX_REGIONS`` regions)."""
     args = (n_regions, max_sharp, max_less_sharp, max_flat, nms_window)
     if all(t.device.type == "cpu" for t in (curv, bcum, spep)):
         return select_rings_plain(curv, bcum, spep, *args, curv_thr)
@@ -73,6 +99,7 @@ def select_rings(curv: torch.Tensor, bcum: torch.Tensor, spep: torch.Tensor,
     if tuple(bcum.shape) != (r, c) or tuple(spep.shape) != (r, 2 * n_regions):
         raise ValueError(f"select_rings: curv {tuple(curv.shape)}, bcum "
                          f"{tuple(bcum.shape)}, spep {tuple(spep.shape)}")
+    check_launch(c, n_regions)
     label = torch.empty((r, c), dtype=torch.int32, device=curv.device)
     _build.launch("aloam_select_rings", curv.device, curv.data_ptr(),
                   bcum.data_ptr(), spep.data_ptr(), label.data_ptr(), r, c,

@@ -36,6 +36,15 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    ``lm_fused`` within its tolerance, counts exact and bit-equal from
    launch to launch (B = 1, 16, 32; no edges; no planes; an all-masked
    stream; a NaN factor; counts not divisible by the cluster size);
+   ``select_rings`` labels exact on rows that press on one rule each
+   (ties, all above or below the threshold, ±inf and NaN, a window over
+   the whole row, disabled windows, bcum stepping everywhere or nowhere,
+   marks across region edges; C = 1000; R' = 1 and 4096); the in-place
+   map merge (``merge_tiles``, ``insert.merge_rows``) with both tables
+   bit-equal to its plain version's as a whole (no row used, every point
+   merging, evictions in both priority classes, priority ties, cnt past
+   the cap; Bk 32 and 48). A kernel that updates the tables in place gets
+   a fresh clone of them for every call, timed calls included;
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
    kernels (its four launch counters must rise, and every odometry search
    must declare ``ring_seg`` > 0) and with the plain versions; per-frame
@@ -85,6 +94,13 @@ import time
 
 import numpy as np
 
+# the seeded adversarial scenes, shared with the CPU tests (numpy only)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+from _torch_scenes import (MERGE_CASES, SELECT_CASES,  # noqa: E402
+                           merge_case, queries_near, segmented_reference,
+                           select_case)
+
 B = 16
 N_FRAMES = 8           # bench.py's batched default
 N_FRONT = 5            # frames of the front_step_b phase
@@ -117,13 +133,15 @@ KERNELS = {
     "assoc_cell": ("assoc", "assoc_cell", "assoc_cell_plain",
                    "aloam_tpu_torch/csrc/assoc.cu",
                    "aloam_tpu/ops/pallas_assoc.py:356"),
-    "merge_tiles": ("insert", "merge_tiles", "merge_tiles_plain",
+    "merge_tiles": ("insert", "merge_rows", "merge_rows_plain",
                     "aloam_tpu_torch/csrc/insert.cu",
                     "aloam_tpu/ops/pallas_insert.py:167"),
     "knn_select": ("knn", "knn_select", "knn_select_plain",
                    "aloam_tpu_torch/csrc/knn.cu",
                    "aloam_tpu/ops/pallas_knn.py:108"),
 }
+# kernels that update their first k arguments in place (the map tables)
+IN_PLACE = {"merge_tiles": 2}
 # the kernels each path runs
 FRONT_KERNELS = ("select_rings", "segmented_prefix_sums", "window_mins",
                  "lm_fused")
@@ -313,8 +331,9 @@ def compare(name, got, want, kind=None):
                              d2, select and fit are the same rounded
                              operations in the same order (bit-equal where
                              measured), a margin for a near-tie;
-      merge_tiles            every output exact (no arithmetic but the
-                             midpoint and the priority formula, identical);
+      merge_tiles            both tables bit-equal as a whole and the
+                             counts exact (no arithmetic but the midpoint
+                             and the priority formula, identical);
       knn_select             d2 and neighbours exact (the same rounded
                              operations in the same order, lowest-index
                              ties)."""
@@ -385,10 +404,21 @@ def kernel_work(name, args, kw, out):
     each query's pass 2 scans; knn_select and assoc_cell: every candidate
     of each query's row) and one add per element and channel of the
     segmented scan. select_rings, lm_fused and merge_tiles count bytes
-    only: their arithmetic per byte is far below the card's balance."""
+    only: their arithmetic per byte is far below the card's balance. The
+    in-place merge counts the bucket rows it reads and writes (the used
+    rows, not the whole table), their bucket ids and points, the counts
+    in and the stats out."""
     nbytes = _nbytes(list(args)) + _nbytes(list(kw.values())) + _nbytes(out)
     flops = 0
-    if name == "window_mins":
+    if name == "merge_tiles":
+        aux, slot_h, cnt, pvox = args[1], args[2], args[3], args[8]
+        used = cnt > 0
+        row = 8 * (aux.shape[-1] // 5) * 4                # 3 + 5 planes
+        n_pts = int(cnt.clamp(0, pvox.shape[-1]).sum())
+        nbytes = (int(used.sum()) * (2 * row + slot_h.element_size())
+                  + n_pts * 5 * 4 + 4 * cnt.numel() * cnt.element_size()
+                  + _nbytes(list(args[9:11])))
+    elif name == "window_mins":
         sel, ref, nearby = args[0], args[1], args[2]
         ring_seg = args[4] if len(args) > 4 else kw.get("ring_seg", 0)
         pairs = sel.shape[0] * sel.shape[1] * ref.shape[2]
@@ -436,6 +466,29 @@ def record_inputs(mods, names, drive):
     return recorded
 
 
+def run_kernel(name, fn, args, kw):
+    """``fn`` on the inputs. A kernel that updates its first
+    ``IN_PLACE[name]`` arguments in place gets clones of them, which come
+    back ahead of its outputs."""
+    k = IN_PLACE.get(name, 0)
+    if not k:
+        return fn(*args, **kw)
+    own = tuple(a.clone() for a in args[:k])
+    return own + tuple(fn(*own, *args[k:], **kw))
+
+
+def fresh_calls(name, fn, args, kw, n: int):
+    """A call of ``fn`` on the inputs for ``cuda_ms``, ``n`` times. A
+    kernel that updates arguments in place gets a fresh clone of them on
+    every call, all made before the clock starts, so that no launch works
+    on a table an earlier launch updated."""
+    k = IN_PLACE.get(name, 0)
+    if not k:
+        return lambda: fn(*args, **kw)
+    pool = iter([tuple(a.clone() for a in args[:k]) for _ in range(n)])
+    return lambda: fn(*next(pool), *args[k:], **kw)
+
+
 def check_recorded(mods, recorded, results, card):
     """Compare and time kernel and plain version on each recorded input;
     ``results`` keeps per kernel the worst error and the times of its
@@ -445,16 +498,18 @@ def check_recorded(mods, recorded, results, card):
                                         key=lambda kv: str(kv[0])):
         mod, spec = mods[name], KERNELS[name]
         kern, plain = getattr(mod, spec[1]), getattr(mod, spec[2])
-        got, want = kern(*args, **kw), plain(*args, **kw)
+        got = run_kernel(name, kern, args, kw)
+        want = run_kernel(name, plain, args, kw)
         torch.cuda.synchronize()
         extra = [a for a in args if isinstance(a, (str, bool, int))]
         err = compare(name, got, want,
                       *[a for a in extra if isinstance(a, str)])
         nbytes, flops = kernel_work(name, args, kw, got)
         bound_ms, bound_by = bound_of(nbytes, flops)
-        ms = cuda_ms(lambda: kern(*args, **kw), 20)
-        device_ms = cuda_ms(lambda: kern(*args, **kw), 20, queued=True)
-        plain_ms = cuda_ms(lambda: plain(*args, **kw), 5)
+        ms = cuda_ms(fresh_calls(name, kern, args, kw, 21), 20)
+        device_ms = cuda_ms(fresh_calls(name, kern, args, kw, 21), 20,
+                            queued=True)
+        plain_ms = cuda_ms(fresh_calls(name, plain, args, kw, 6), 5)
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         size = sum(a.numel() for a in args if torch.is_tensor(a))
         say(f"[kernel] {name}{extra if extra else ''}: inputs {shapes} "
@@ -474,7 +529,9 @@ def check_recorded(mods, recorded, results, card):
 
 def check_kernels(pipeline, mods, cfg, frames, device, card):
     """Phase 4: step_b's kernels at the inputs frame 1 of step_b gives
-    them. Returns {name: dict(max_abs_err, ms, plain_ms, size)}."""
+    them, and the device time of a trivial launch beside them. Returns
+    {name: dict(max_abs_err, ms, plain_ms, size)}."""
+    import torch
     st = pipeline.init_state(cfg, B, device)
     st, _ = pipeline.step_b(st, *frames[0], cfg)
     recorded = record_inputs(
@@ -482,6 +539,10 @@ def check_kernels(pipeline, mods, cfg, frames, device, card):
     del st
     results = {}
     check_recorded(mods, recorded, results, card)
+    one = torch.zeros(1, device=device)
+    say(f"[kernel] launch floor: a one-element add, device "
+        f"{cuda_ms(lambda: one.add_(1), 20, queued=True):.4f} ms (every "
+        f"device ms above includes such a launch) ({card})")
     return results
 
 
@@ -519,41 +580,6 @@ def check_single_kernels(pipeline, mods, cfg_b, map_state, odom_state,
 
     recorded.update(record_inputs(mods, ("knn_select",), assoc_b))
     check_recorded(mods, recorded, results, card)
-
-
-def segmented_reference(rng, bsz: int, rings: int, seg: int, pad: int,
-                        fill: float = 0.8):
-    """A ring-segmented odometry reference in the frontend's ring_heads
-    layout, planar and poisoned as window_mins takes it: (B, 4, M) f32
-    [x | y | z | ring], M = rings·seg + pad; ring r's valid points first
-    in rows [r·seg, (r+1)·seg), on a cone at height 0.4 r - 12.8 around
-    the sensor; padding at 1e9."""
-    m = rings * seg + pad
-    ref = np.full((bsz, 4, m), 1e9, np.float32)
-    for b in range(bsz):
-        for r in range(rings):
-            cnt = int(seg * fill) - int(rng.integers(0, 8))
-            th = rng.uniform(-np.pi, np.pi, cnt)
-            rad = rng.uniform(6, 40, cnt)
-            rows = slice(r * seg, r * seg + cnt)
-            ref[b, 0, rows] = rad * np.cos(th)
-            ref[b, 1, rows] = rad * np.sin(th)
-            ref[b, 2, rows] = 0.4 * r - 12.8 + rng.normal(0, 0.02, cnt)
-            ref[b, 3, rows] = r
-    return ref
-
-
-def queries_near(rng, ref, q: int, rings=None):
-    """(B, Q, 3) f32 queries 0.3 m off valid reference points (of the
-    given rings only, if any)."""
-    sel = np.zeros((ref.shape[0], q, 3), np.float32)
-    for b in range(ref.shape[0]):
-        ok = ref[b, 3] < 1e8
-        if rings is not None:
-            ok &= np.isin(ref[b, 3], rings)
-        pick = rng.choice(np.flatnonzero(ok), q)
-        sel[b] = ref[b, :3, pick] + rng.normal(0, 0.3, (q, 3))
-    return sel
 
 
 def check_adversarial(mods, device, results, card):
@@ -819,6 +845,69 @@ def check_adversarial_lm(mods, device, results, card):
             f"{got[:, 11].int().tolist()[:6]} ({card})")
     results["lm_fused"]["max_abs_err"] = max(
         results["lm_fused"]["max_abs_err"], worst)
+
+
+def check_adversarial_select(mods, device, card):
+    """Phase 4, fifth part: select_rings labels exact against its plain
+    version on rows that press on one rule of the walk each
+    (``_torch_scenes.select_case``: ring-like rows, all ties above and
+    below the threshold, every point above, every point below, ±inf and
+    NaN, one window over the whole row, disabled windows, bcum stepping at
+    every column and never, marks that cross into the next region), 64
+    rows of the path's width 1856; then the whole-row window and ring-like
+    rows at one stream's 2560 (windows up to 425 columns, past the
+    kernel's largest register tile), C = 1000 (not a multiple of 32),
+    R' = 1 and R' = 4096."""
+    import torch
+    mod = mods["select_rings"]
+    rng = np.random.default_rng(6)
+    cases = [(case, 64, 1856) for case in SELECT_CASES] + [
+        ("whole_row", 64, 2560), ("ring_rows", 64, 2560),
+        ("ring_rows", 256, 1000),
+        ("ring_rows", 1, 1856), ("ring_rows", 4096, 1856)]
+    for case, rows, c in cases:
+        curv, bcum, spep, _ = select_case(rng, case, rows, c)
+        args = tuple(torch.from_numpy(a).to(device) for a in (curv, bcum,
+                                                              spep))
+        args += (6, 2, 20, 4, 5, 0.1)
+        got = mod.select_rings(*args)
+        compare("select_rings", got, mod.select_rings_plain(*args))
+        say(f"[adversarial] select_rings {case}: ({rows}, {c}), "
+            f"{int((got > 0).sum())} corner and {int((got < 0).sum())} flat "
+            f"labels: exact against plain ({card})")
+
+
+def check_adversarial_merge(mods, device, card):
+    """Phase 4, sixth part: the in-place merge against its plain version,
+    each on its own clone of the tables, both tables bit-equal as a whole
+    (the rows no used row names included) and the counts equal, at Bk 32
+    and 48 over B = 2 tables of 4096 buckets with 1024 rows of 16 points
+    (``_torch_scenes.merge_case``): random tables and points, no row used,
+    every point merging, more appends than empty slots in and out of the
+    window (evictions in both priority classes), rows of one priority
+    (ties), cnt past the point cap."""
+    import torch
+    mod = mods["merge_tiles"]
+    rng = np.random.default_rng(8)
+    for bk in (32, 48):
+        for case in MERGE_CASES:
+            arrays = merge_case(rng, case, bsz=2, h=4096, cap_c=1024,
+                                cap_p=16, bk=bk)
+            args = tuple(torch.from_numpy(a).to(device) for a in arrays)
+            args += (2.0, 0.4)
+            got = run_kernel("merge_tiles", mod.merge_rows, args, {})
+            want = run_kernel("merge_tiles", mod.merge_rows_plain, args, {})
+            compare("merge_tiles", got, want)
+            changed = int((got[0] != args[0]).any(dim=-1).sum())
+            say(f"[adversarial] merge_tiles {case} Bk {bk}: "
+                f"{int((args[3] > 0).sum())} used rows, {changed} table rows "
+                f"changed, merged / appended / evicted "
+                f"{[int(t.sum()) for t in got[2:]]}: tables bit-equal to "
+                f"plain, counts equal ({card})")
+            if case == "all_unused" and changed:
+                fail("merge_tiles: a row with cnt 0 changed the table")
+            if case == "evictions" and not int(got[4].sum()):
+                fail("merge_tiles: the evictions case evicted nothing")
 
 
 @contextlib.contextmanager
@@ -1215,6 +1304,8 @@ def main() -> None:
     check_adversarial(mods, device, results, card)
     check_adversarial_assoc(mods, device, results, card)
     check_adversarial_lm(mods, device, results, card)
+    check_adversarial_select(mods, device, card)
+    check_adversarial_merge(mods, device, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
     launches, st_b = run_step(pipeline, mods, cfg, frames, gt, device, card)
 

@@ -36,3 +36,159 @@ def queries_near(rng, ref, q: int, rings=None):
         pick = rng.choice(np.flatnonzero(ok), q)
         sel[b] = ref[b, :3, pick] + rng.normal(0, 0.3, (q, 3))
     return sel
+
+
+SELECT_CASES = ("ring_rows", "ties_above", "ties_below", "all_above",
+                "all_below", "nonfinite", "whole_row", "disabled",
+                "bcum_every", "bcum_never", "region_edges")
+
+
+def region_windows(cnt, n_regions: int = 6):
+    """(sp, ep) (R, n_regions) of the frontend's region windows for ring
+    fills cnt (R,): sp_j = 5 + (cnt-11)·j // n, ep_j = 5 + (cnt-11)·(j+1)
+    // n - 1; ep = -1 on a ring too short to select from."""
+    base = np.asarray(cnt, np.int64)[:, None] - 11
+    j = np.arange(n_regions)
+    sp = 5 + base * j // n_regions
+    ep = np.where(base >= n_regions, 5 + base * (j + 1) // n_regions - 1, -1)
+    return sp, ep
+
+
+def select_case(rng, case: str, rows: int, c: int, n_regions: int = 6):
+    """select_rings inputs that press on one rule of the walk: (curv (R, C)
+    f32, bcum (R, C) i32, spep (R, 2·n_regions) f32, cnt) where cnt (R,)
+    is each row's fill when the windows are the frontend's
+    (region_windows), else None. The threshold is 0.1. Cases: ring-like random rows; all
+    ties above and below the threshold; every point above, every point
+    below; ±inf and NaN; one region over the whole row; disabled regions
+    (ep = -1, and sp > ep); bcum stepping at every column, and never;
+    peaks at region edges whose marks cross into the next region."""
+    cnt = rng.integers(c // 2, c + 1, rows)
+    cnt[0] = c
+    sp, ep = region_windows(cnt, n_regions)
+    curv = rng.uniform(0, 0.4, (rows, c))
+    curv[:, 40:44] = 0.3                         # exact ties
+    steps = rng.uniform(size=(rows, c - 1)) < 0.07
+    bcum = np.concatenate([np.zeros((rows, 1), np.int64),
+                           np.cumsum(steps, axis=1)], axis=1)
+    standard = True
+    if case == "ties_above":
+        curv[:] = 0.3
+    elif case == "ties_below":
+        curv[:] = 0.05
+    elif case == "all_above":
+        curv = rng.uniform(0.2, 1.0, (rows, c))
+    elif case == "all_below":
+        curv = rng.uniform(0.0, 0.09, (rows, c))
+    elif case == "nonfinite":
+        # NaN anywhere; one +inf (no corner pick) or one -inf (no flat
+        # pick) in two of every three windows
+        curv[rng.uniform(size=(rows, c)) < 0.1] = np.nan
+        for r, j in zip(*np.nonzero(ep >= sp)):
+            k = rng.integers(sp[r, j], ep[r, j] + 1)
+            curv[r, k] = (np.inf, -np.inf, curv[r, k])[(r + j) % 3]
+    elif case == "whole_row":
+        sp[:], ep[:] = 0, -1
+        ep[:, 0] = c - 1
+        standard = False
+    elif case == "disabled":
+        ep[:, ::2] = -1
+        sp[:, 1] = ep[:, 1] + 3
+        standard = False
+    elif case == "bcum_every":
+        bcum = np.broadcast_to(np.arange(c), (rows, c))
+    elif case == "bcum_never":
+        bcum = np.zeros((rows, c), np.int64)
+    elif case == "region_edges":
+        curv = rng.uniform(0.0, 0.2, (rows, c))
+        for j in range(n_regions):
+            for r in np.flatnonzero(ep[:, j] >= 0):
+                e = ep[r, j]
+                curv[r, e] = 0.9                 # the last column's pick
+                curv[r, e - 1] = 0.8
+                curv[r, e + 1:min(e + 4, c)] = 0.85  # marked from region j
+                curv[r, sp[r, j]] = 0.0          # a flat pick at the start
+    elif case != "ring_rows":
+        raise ValueError(case)
+    spep = np.concatenate([sp, ep], axis=1).astype(np.float32)
+    return (curv.astype(np.float32), np.ascontiguousarray(bcum, np.int32),
+            spep, cnt if standard else None)
+
+
+MERGE_CASES = ("random", "all_unused", "all_merge", "evictions",
+               "prio_ties", "cnt_over_cap")
+_EMPTY = 32767
+
+
+def _vox_hash(p, leaf: float):
+    v = np.floor(p / leaf).astype(np.int64)
+    h = (v[..., 0, :] * 73856093) ^ (v[..., 1, :] * 19349663) \
+        ^ (v[..., 2, :] * 83492791)
+    return (h & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+
+def merge_case(rng, case: str, bsz: int = 2, h: int = 512, cap_c: int = 64,
+               cap_p: int = 16, bk: int = 48, cell: float = 2.0,
+               leaf: float = 0.4):
+    """merge_rows inputs, numpy: (pts (B, H, 3·bk) f32, aux (B, H, 5·bk)
+    i32, slot_h (B, C) i32, cnt (B, C) i32, px, py, pz, pi (B, C, P) f32,
+    pvox (B, C, P) i32, center (B, 3) i32, window (3,) i32). Each stream
+    uses a prefix of its rows (the last stream none), each used row its
+    own bucket; unused rows name bucket 0, as gridmap builds them. Cases:
+    random tables and points (a third of them merging); no row used; every
+    point merging; full rows in the window and rows half out of it with
+    more points than empty slots (evictions in both priority classes);
+    rows whose slots all share one cell (priority ties); cnt above the
+    point cap."""
+    window = np.array([5, 5, 3], np.int32)
+    center = rng.integers(-4, 4, (bsz, 3)).astype(np.int32)
+    occ_p = 0.97 if case in ("evictions", "prio_ties") else 0.6
+    occ = rng.uniform(size=(bsz, h, bk)) < occ_p
+    spread = 14.0 if case == "evictions" else 40.0
+    p = (center[:, None, :, None] * cell + rng.uniform(
+        -spread, spread, (bsz, h, 3, bk))).astype(np.float32)
+    if case == "evictions":      # every other row wholly inside the window
+        p[:, ::2] = (center[:, None, :, None] * cell
+                     + rng.uniform(-8, 8, (bsz, h // 2, 3, bk))
+                     * np.array([1, 1, 0.5])[:, None]).astype(np.float32)
+    if case == "prio_ties":      # one cell a row: one priority a row
+        p = (np.floor(p[..., :1] / cell) * cell + rng.uniform(
+            0.1, 1.9, (bsz, h, 3, bk))).astype(np.float32)
+    cells = np.where(occ[:, :, None], np.floor(p / cell), _EMPTY)
+    vox = np.where(occ, _vox_hash(p, leaf), 0)
+    pts = np.where(occ[:, :, None], p, 1e9).astype(np.float32)
+    inten = np.where(occ, rng.uniform(0, 1, (bsz, h, bk)), 0.0)
+    aux = np.concatenate([inten.astype(np.float32).view(np.int32)[:, :, None],
+                          cells.astype(np.int32), vox[:, :, None]], axis=2)
+
+    n_used = rng.integers(cap_c // 2, cap_c + 1, bsz)
+    n_used[-1] = 0
+    if case == "all_unused":
+        n_used[:] = 0
+    slot_h = np.zeros((bsz, cap_c), np.int32)
+    cnt = np.zeros((bsz, cap_c), np.int32)
+    for b in range(bsz):
+        u = n_used[b]
+        slot_h[b, :u] = rng.choice(h, u, replace=False)
+        cnt[b, :u] = rng.integers(1, cap_p + 1, u)
+        if case in ("evictions", "prio_ties"):
+            cnt[b, :u] = cap_p
+        if case == "cnt_over_cap":
+            cnt[b, :u] = cap_p + rng.integers(0, 9, u)
+    q = rng.uniform(-40, 40, (3, bsz, cap_c, cap_p)).astype(np.float32)
+    qi = rng.uniform(0, 1, (bsz, cap_c, cap_p)).astype(np.float32)
+    pvox = _vox_hash(np.moveaxis(q, 0, -2), leaf)
+    row_vox = np.take_along_axis(vox, slot_h[..., None].astype(np.int64), 1)
+    row_occ = np.take_along_axis(occ, slot_h[..., None].astype(np.int64), 1)
+    share = {"random": 0.3, "all_merge": 1.0}.get(case, 0.0)
+    pick = rng.integers(0, bk, (bsz, cap_c, cap_p))
+    if case == "all_merge":      # each point names an occupied slot's voxel
+        for b in range(bsz):
+            for r in range(cap_c):
+                live = np.flatnonzero(row_occ[b, r])
+                pick[b, r] = rng.choice(live, cap_p)
+    merge = rng.uniform(size=(bsz, cap_c, cap_p)) < share
+    pvox = np.where(merge, np.take_along_axis(row_vox, pick, 2), pvox)
+    return (pts.reshape(bsz, h, 3 * bk), aux.reshape(bsz, h, 5 * bk),
+            slot_h, cnt, q[0], q[1], q[2], qi, pvox.astype(np.int32), center,
+            window)

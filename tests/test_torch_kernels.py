@@ -41,7 +41,8 @@ from aloam_tpu_torch.ops import odom as odom_op
 from aloam_tpu_torch.ops import select as select_op
 from aloam_tpu_torch.ops import voxel as seg_op
 from aloam_tpu_torch.utils.batch import bgather
-from _torch_scenes import queries_near, segmented_reference
+from _torch_scenes import (SELECT_CASES, queries_near, segmented_reference,
+                           select_case)
 
 torch.set_num_threads(1)
 
@@ -113,6 +114,98 @@ def test_select_rings_matches_jax(seed):
     np.testing.assert_array_equal(args[2].numpy(), np.asarray(spep))
     assert (label_t.numpy() == 2).sum() > 0 and (label_t.numpy() == -1).any()
     assert in_t.dtype == torch.bool
+
+
+def _select_all(curv, bcum, spep, cnt, tr=8):
+    """Labels of the port's select_rings on CPU tensors (the plain
+    version), of JAX's Pallas kernel in interpret mode and, when the
+    windows are the frontend's (cnt given), of JAX's XLA walk
+    features._select_rings fed points whose gaps reproduce bcum (x =
+    0.01 j + 2 bcum: a step is a 2 m gap, no step a 1 cm one)."""
+    args = (CFG.n_regions, CFG.max_sharp, CFG.max_less_sharp, CFG.max_flat,
+            CFG.nms_window, CFG.curvature_threshold)
+    got = select_op.select_rings(_t(curv), _t(bcum), _t(spep), *args)
+    assert got.dtype == torch.int32
+    want = [np.asarray(j_select_rings(
+        jnp.asarray(curv), jnp.asarray(bcum.astype(np.float32)),
+        jnp.asarray(spep), *args, tr=tr, interpret=True))]
+    if cnt is not None:
+        x = 0.01 * np.arange(curv.shape[1]) + 2.0 * bcum
+        pts = np.stack([x, np.zeros_like(x), np.zeros_like(x)],
+                       -1).astype(np.float32)
+        label_x, _, _ = jfeat._select_rings(
+            jnp.asarray(pts), jnp.asarray(curv),
+            jnp.asarray(cnt.astype(np.int32)), JCFG)
+        want.append(np.asarray(label_x, np.int32))
+    for w in want:
+        np.testing.assert_array_equal(got.numpy(), w)
+    return got.numpy()
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_select_rings_cases_match_jax(case):
+    """Labels exact on rows that press on one rule each
+    (_torch_scenes.select_case; C = 77, not a multiple of 32): ties, all
+    points above or below the threshold, ±inf and NaN, one window over
+    the whole row, disabled windows, bcum stepping at every column and
+    never, marks that cross into the next region."""
+    rng = np.random.default_rng(SELECT_CASES.index(case))
+    curv, bcum, spep, cnt = select_case(rng, case, 12, 77)
+    label = _select_all(curv, bcum, spep, cnt)
+    n_corner, n_flat = (label > 0).sum(), (label < 0).sum()
+    if case in ("ties_above", "all_above"):
+        assert n_corner > 0 and n_flat == 0
+    if case in ("ties_below", "all_below"):
+        assert n_flat > 0 and n_corner == 0
+    if case == "ties_above":
+        # ties go to the lowest index: the first region's first pick is its
+        # first column (later regions may start marked by the one before)
+        live = spep[:, CFG.n_regions] >= 0
+        sp = spep[live, 0].astype(int)
+        np.testing.assert_array_equal(label[live, sp], 2)
+    if case == "whole_row":
+        assert ((label != 0).sum(axis=1)
+                <= CFG.max_less_sharp + CFG.max_flat).all()
+    if case == "disabled":
+        assert not label[:, 5:].all()
+    if case == "region_edges":
+        # region j's pick at its last column marks the next region's first
+        # columns (equal bcum), so they are never picked there
+        sp, ep = spep[:, :CFG.n_regions], spep[:, CFG.n_regions:]
+        sp, ep = sp.astype(int), ep.astype(int)
+        for r in range(label.shape[0]):
+            for j in range(CFG.n_regions - 1):
+                e = ep[r, j]
+                if e < 0 or ep[r, j + 1] < 0:
+                    continue
+                if e - sp[r, j] < CFG.nms_window:    # may be marked from j - 1
+                    continue
+                assert label[r, e] == 2
+                marked = bcum[r, e + 1:e + 4] == bcum[r, e]
+                assert (label[r, e + 1:e + 4][marked] == 0).all()
+
+
+@pytest.mark.parametrize("rows, c", [(1, 160), (4096, 40)])
+def test_select_rings_row_counts_match_jax(rows, c):
+    """One ring row, and 4096 short rows: labels exact as above."""
+    rng = np.random.default_rng(rows)
+    curv, bcum, spep, cnt = select_case(rng, "ring_rows", rows, c)
+    label = _select_all(curv, bcum, spep, cnt, tr=min(rows, 512))
+    assert (label == 2).any() and (label == 1).any()
+
+
+def test_select_check_launch():
+    """The kernel stages a row in one block's shared memory (9 bytes a
+    column) and gives each region a warp: the path's rows fit, a row too
+    wide or too many regions is refused."""
+    assert select_op.row_bytes(1856) == 16704
+    assert select_op.row_bytes(77) == 704
+    select_op.check_launch(2560, 6)
+    select_op.check_launch(25000, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        select_op.check_launch(30000, 6)
+    with pytest.raises(ValueError, match="regions"):
+        select_op.check_launch(1856, 17)
 
 
 # --- segmented_prefix_sums -------------------------------------------------
@@ -561,12 +654,12 @@ def test_wrappers_refuse_non_cuda_devices():
                             torch.empty(256, 8, **meta), "surf", 1.0)
     i32 = dict(dtype=torch.int32, **meta)
     with pytest.raises(ValueError):
-        insert_op.merge_tiles(
-            torch.empty(1, 4, 96, **meta), torch.empty(1, 4, 32, **meta),
-            torch.empty(1, 4, 96, **i32), torch.empty(1, 4, 32, **i32),
+        insert_op.merge_rows(
+            torch.empty(1, 64, 96, **meta), torch.empty(1, 64, 160, **i32),
+            torch.empty(1, 4, **i32), torch.empty(1, 4, **i32),
             *(torch.empty(1, 4, 16, **meta) for _ in range(4)),
-            torch.empty(1, 4, 16, **i32), torch.empty(1, 4, **i32),
-            torch.empty(1, 3, **i32), torch.empty(3, **i32), 2.0, 0.4)
+            torch.empty(1, 4, 16, **i32), torch.empty(1, 3, **i32),
+            torch.empty(3, **i32), 2.0, 0.4)
     with pytest.raises(ValueError):
         knn_op.knn_select(torch.empty(300, 768, **meta),
                           torch.empty(256, dtype=torch.int32, **meta),

@@ -44,6 +44,7 @@ from aloam_tpu_torch.ops import gridmap
 from aloam_tpu_torch.ops import insert as insert_op
 from aloam_tpu_torch.ops import linalg3
 from aloam_tpu_torch.types import PointCloud
+from _torch_scenes import MERGE_CASES, merge_case
 
 torch.set_num_threads(1)
 
@@ -276,7 +277,7 @@ def test_merge_tiles_plain_bit_exact(rng):
     arrays = (pts.reshape(bsz, cap_c, 3 * bk), inten,
               cell.reshape(bsz, cap_c, 3 * bk), vox, pp[0], pp[1], pp[2],
               ppi, pvox, cnt, center, window)
-    got = insert_op.merge_tiles(*map(_t, arrays), cell_size, leaf)
+    got = insert_op.merge_tiles_plain(*map(_t, arrays), cell_size, leaf)
     jargs = [jnp.asarray(a) for a in arrays]
     names = ["px", "py", "pz", "int", "cx", "cy", "cz", "vox", "merged",
              "appended", "evicted"]
@@ -286,6 +287,64 @@ def test_merge_tiles_plain_bit_exact(rng):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                           err_msg=nm)
     assert got[8].sum() > 0 and got[9].sum() > 0 and got[10].sum() > 0
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
+@pytest.mark.parametrize("bk", [32, 48])
+def test_merge_rows_in_place_matches_jax(case, bk):
+    """merge_rows on CPU tensors (merge_rows_plain) updates the tables in
+    place exactly as gathering the used rows' tiles, merging them with
+    JAX's merge kernel (interpret mode) and writing them back: both tables
+    bit-identical as a whole, counts equal. Rows with cnt 0 (and the last
+    stream, which uses none) leave the table untouched; tables and points
+    from _torch_scenes.merge_case: no row used, every point merging, more
+    appends than empty slots in and out of the window, priority ties, cnt
+    past the point cap."""
+    arrays = merge_case(np.random.default_rng(MERGE_CASES.index(case) + bk),
+                        case, bk=bk)
+    pts, aux, slot_h, cnt = arrays[:4]
+    center, window = arrays[9:]
+    t_pts, t_aux = _t(pts), _t(aux)
+    got = insert_op.merge_rows(t_pts, t_aux, *map(_t, arrays[2:]), 2.0, 0.4)
+
+    bsz, cap_c = cnt.shape
+    rows = slot_h.astype(np.int64)[..., None]
+    tile_p = np.take_along_axis(pts, rows, 1)
+    tile_a = np.take_along_axis(aux, rows, 1).reshape(bsz, cap_c, 5, bk)
+    jout = [np.asarray(o) for o in j_merge_tiles(
+        *map(jnp.asarray, (tile_p, tile_a[:, :, 0].view(np.float32),
+                           tile_a[:, :, 1:4].reshape(bsz, cap_c, 3 * bk),
+                           tile_a[:, :, 4], *arrays[4:9], cnt, center,
+                           window)),
+        2.0, 0.4, interpret=True)]
+    want_p, want_a = pts.copy(), aux.copy()
+    for b, r in zip(*np.nonzero(cnt > 0)):
+        want_p[b, slot_h[b, r]] = np.concatenate([o[b, r] for o in jout[:3]])
+        want_a[b, slot_h[b, r]] = np.concatenate(
+            [jout[3][b, r].view(np.int32)] + [o[b, r] for o in jout[4:8]])
+    np.testing.assert_array_equal(t_pts.numpy(), want_p)
+    np.testing.assert_array_equal(t_aux.numpy(), want_a)
+    for g, w in zip(got, jout[8:], strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.where(cnt > 0, w, 0))
+
+    named = np.zeros(pts.shape[:2], bool)
+    for b, r in zip(*np.nonzero(cnt > 0)):
+        named[b, slot_h[b, r]] = True
+    np.testing.assert_array_equal(t_pts.numpy()[~named], pts[~named])
+    np.testing.assert_array_equal(t_aux.numpy()[~named], aux[~named])
+    assert not named[-1].any()
+    merged, appended, evicted = (g.numpy() for g in got)
+    assert (merged + appended <= np.minimum(cnt, 16)).all()
+    if case == "all_unused":
+        assert not named.any() and not (merged | appended).any()
+    elif case == "all_merge":
+        np.testing.assert_array_equal(merged, np.minimum(cnt, 16))
+        assert not appended.any()
+    elif case in ("evictions", "prio_ties"):
+        # rows wholly inside the window (even) evict in-window slots
+        assert evicted[:, ::2].sum() > 0 and evicted[:, 1::2].sum() > 0
+    elif case == "cnt_over_cap":
+        assert (cnt > 16).any() and appended.max() == 16
 
 
 # --- hashing and the table passes -------------------------------------------
