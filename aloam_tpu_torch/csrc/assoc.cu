@@ -33,11 +33,11 @@
 // buffers, so the next run's row loads while this one is selected, and
 // selects the run's queries one after another with the lanes spread over
 // the staged candidates (two or four queries at once ran slower: their d2
-// registers cut the warps an SM holds). Each lane keeps its two smallest
-// (d2, index) keys; a pass is two redux.sync minima (the d2 bits, which
-// order as unsigned integers for d2 >= 0, then the lowest index holding
-// that minimum), and the winning lane promotes its second key and rescans
-// only when it wins again. The five picks' coordinates and d2_4 go to a
+// registers cut the warps an SM holds). The select is knn_select.cuh's,
+// shared with knn.cu: per-lane top-2 (d2, index) keys and two redux.sync
+// minima a pass (a query with a +inf pick has d2_4 = +inf, so its picks
+// are zeroed, as the plain version gates them). The five picks'
+// coordinates and d2_4 go to a
 // per-query record in shared memory, and then each owning lane fits its
 // own query. A gated query reads no row and is fitted on zeros, as the
 // plain version gates it. Device time at B = 16 fell from ~0.155 / ~0.127
@@ -46,6 +46,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "knn_select.cuh"
 
 namespace {
 
@@ -207,16 +209,6 @@ __device__ __forceinline__ int cand_off(int bw, int j) {
   return blk * 3 * bw + (j - blk * bw);
 }
 
-// Insert key (v, k) into a lane's two smallest keys (m1, k1) <= (m2, k2).
-__device__ __forceinline__ void top2(float v, int k, float& m1, int& k1,
-                                     float& m2, int& k2) {
-  const bool lt1 = v < m1, lt2 = v < m2;
-  m2 = lt1 ? m1 : (lt2 ? v : m2);
-  k2 = lt1 ? k1 : (lt2 ? k : k2);
-  m1 = lt1 ? v : m1;
-  k1 = lt1 ? k : k1;
-}
-
 // The gated 5-NN of the live query in lane `slot` over the staged row sb;
 // off[k] is the offset of this lane's candidate lane + 32 k (-1 past the
 // row). Writes the query's record: the picks' coordinates p[a][k] at
@@ -231,61 +223,26 @@ __device__ __forceinline__ void select_query(const float* sb, int bw,
   const float sx = __shfl_sync(kFull, qx, slot);
   const float sy = __shfl_sync(kFull, qy, slot);
   const float sz = __shfl_sync(kFull, qz, slot);
-  // Each lane keeps its two smallest (d2, k) keys. A pass takes the
-  // warp's smallest first key; the winning lane promotes its second. A
-  // lane that wins again rescans for its two smallest keys past the last
-  // one it gave up (the picks come in increasing key order, so those are
-  // exactly the keys left). Strict < over increasing k keeps the lower
-  // index first on a tie.
   float d[PER_LANE];
-  float m1 = INFINITY, m2 = INFINITY;
-  int k1 = 0, k2 = 1;
+  knn_sel::Top2 top;
 #pragma unroll
   for (int k = 0; k < PER_LANE; ++k) {
     d[k] = INFINITY;
     if (off[k] >= 0) {
       const float* c = sb + off[k];
-      const float dx = __fsub_rn(c[0], sx);
-      const float dy = __fsub_rn(c[bw], sy);
-      const float dz = __fsub_rn(c[2 * bw], sz);
-      d[k] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                       __fmul_rn(dz, dz));
+      d[k] = knn_sel::d2_of(c[0], c[bw], c[2 * bw], sx, sy, sz);
     }
-    top2(d[k], k, m1, k1, m2, k2);
+    top.push(d[k], k);
   }
   // lane a*5+k keeps pick k, to write coordinate a of it
   const int a = lane / 5, kk = lane - 5 * (lane / 5);
   unsigned mine = 0;
-  float d4 = 0.f, ld = -1.f;
-  int lk = 0;
-  bool stale = false;
-#pragma unroll
-  for (int pass = 0; pass < 5; ++pass) {
-    // d2 >= 0 (+inf included) orders as its unsigned bits
-    const unsigned bits = __float_as_uint(m1);
-    const unsigned m = __reduce_min_sync(kFull, bits);
-    const unsigned key = static_cast<unsigned>(32 * k1 + lane);
-    const unsigned j = __reduce_min_sync(kFull, bits == m ? key : kFull);
-    mine = kk == pass ? j : mine;
-    d4 = __uint_as_float(m);
-    if (static_cast<int>(j & 31) == lane && pass < 4) {
-      ld = m1;
-      lk = k1;
-      if (stale) {
-        m1 = m2 = INFINITY;
-        k1 = 0;
-        k2 = 1;
-#pragma unroll
-        for (int k = 0; k < PER_LANE; ++k)
-          if (d[k] > ld || (d[k] == ld && k > lk))
-            top2(d[k], k, m1, k1, m2, k2);
-      } else {
-        m1 = m2;
-        k1 = k2;
-      }
-      stale = !stale;
-    }
-  }
+  float d4 = 0.f;
+  knn_sel::select_passes<PER_LANE, 1>(
+      d, top, lane, 5, [&](int pass, unsigned j, float dj) {
+        mine = kk == pass ? j : mine;
+        d4 = dj;
+      });
   // lane a*5+k writes coordinate a of pick k; lane 15 writes d2_4
   float* r = rec + slot * kRec;
   if (lane < 15)

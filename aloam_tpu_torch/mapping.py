@@ -16,8 +16,10 @@ association round through the fused ``assoc_cell`` kernel over
 cell-sorted stacks: the solver and every metric reduce over factors in any
 order, and the insert re-sorts by bucket, so nothing is unsorted.
 ``mapping_step`` (one stream, the single-stream step) re-searches every
-round exactly, as the reference does, through ``gridmap.knn`` and the
-``knn_select`` kernel. The map tables are updated in place.
+round exactly, as the reference does, through ``gridmap.knn``: the
+``knn_select`` kernel's table entry, which reads each query's bucket block
+straight from the map table, with no cache. The map tables are updated in
+place.
 """
 
 from __future__ import annotations

@@ -126,6 +126,23 @@ def _offsets8(device=None) -> torch.Tensor:
     return torch.as_tensor(g, dtype=torch.int32, device=device)
 
 
+def _block(cells: torch.Tensor, table_size: int):
+    """The bucket rows of the 2×2×2 cell blocks at ``cells`` (..., 3): (hh
+    (..., 8) in ``_offsets8`` order, dup (..., 8) True where an earlier
+    cell of the block hashes to the same bucket)."""
+    hh = _hash(cells[..., None, :] + _offsets8(cells.device), table_size)
+    same = hh[..., :, None] == hh[..., None, :]
+    tri = torch.ones((8, 8), dtype=torch.bool, device=cells.device).tril(-1)
+    return hh, (same & tri).any(dim=-1)
+
+
+def block_buckets(query: torch.Tensor, table_size: int, cell_size: float,
+                  radius: float):
+    """The 2×2×2 bucket block of each query (..., 3): its base cell
+    floor((q - radius) / cell) and :func:`_block` of it, (hh, dup)."""
+    return _block(_cells_of(query - radius, cell_size), table_size)
+
+
 def evict_and_count(grid: GridMap, center: torch.Tensor,
                     window_half: torch.Tensor, local_half: torch.Tensor,
                     evict: bool = True):
@@ -215,12 +232,8 @@ def knn_cache_b(grid: GridMap, query: torch.Tensor, cell_size: float,
         (bsz, ASSOC_PAD, 3), dtype=torch.int32, device=dev)], dim=1)
 
     # --- per-cell candidate blocks (the deduplicated gather) --------------
-    ncells = slot_cell[:, :, None, :] + _offsets8(dev)[None, None]
-    hh = _hash(ncells, table_size)                           # (B, C+P, 8)
+    hh, dup = _block(slot_cell, table_size)                  # (B, C+P, 8)
     cand = bgather(grid.pts, hh)                             # (B,C+P,8,3Bk)
-    same = hh[..., :, None] == hh[..., None, :]
-    tri = torch.ones((8, 8), dtype=torch.bool, device=dev).tril(-1)
-    dup = (same & tri).any(dim=-1)                           # (B, C+P, 8)
     # a bucket that two block cells share is read once: the later copy is
     # poisoned at the _FAR sentinel
     cand = cand.masked_fill_(dup[..., None], _FAR)
@@ -274,16 +287,16 @@ def knn(grid: GridMap, query: torch.Tensor, k: int, cell_size: float,
     block at floor((q - radius) / cell). Returns (d2 (Q, k) ascending,
     +inf where fewer than k candidates are left, nbrs (Q, k, 3)).
 
-    This is :func:`knn_b` at B = 1 with ``cell_cap = Q``, so no query can
-    spill, as none can in the JAX package's ``knn`` (a per-query block
-    gather and ``lax.top_k``), which its tests pin equal to ``knn_b``
-    (tests/test_batched_kernels.py:209). The two differ only where no gate
-    looks: a bucket that two block cells share is read once, its copy at
-    the ``_FAR`` sentinel here and at d2 = +inf in JAX's ``knn``."""
-    g1 = GridMap(pts=grid.pts[None], aux=grid.aux[None])
-    d2, nbrs, _ = knn_b(g1, query[None], k, cell_size, radius, query_chunk,
-                        cell_cap=query.shape[0])
-    return d2[0], nbrs[0]
+    Each query reads its own block from the table (``ops/knn.knn_grid``:
+    the kernel for CUDA tensors, for CPU ones the plain version, whose
+    block copy ``query_chunk`` bounds), as the JAX package's ``knn`` does;
+    no knn cache is built. The two differ only where no gate looks: a
+    bucket that two block cells share is read once, its copy at the
+    ``_FAR`` sentinel here and at d2 = +inf in JAX's ``knn``."""
+    if cell_size < 2 * radius:
+        raise ValueError(f"cell_size {cell_size} < 2 * radius {radius}")
+    return knn_op.knn_grid(grid.pts, query.contiguous(), k, cell_size,
+                           radius, query_chunk)
 
 
 def insert_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,

@@ -1,16 +1,29 @@
-"""Gated k-NN select over candidate rows (kernel module).
+"""Gated k-NN select over a query's 2×2×2 bucket block (kernel module).
 
-Port of ``aloam_tpu/ops/pallas_knn.py:knn_select``, the select tail of
-``gridmap.knn_from_cache_b``: per query, its cell's block-planar candidate
-row (8 sub-blocks of [x(bw) | y(bw) | z(bw)], candidate j = block·bw + e),
-d2 = ((x-qx)^2 + (y-qy)^2) + (z-qz)^2 one rounded operation at a time,
-+inf for a gated query, then k passes that each take the minimum with the
-lowest index on a tie and set it to +inf.
+Port of ``aloam_tpu/ops/pallas_knn.py:knn_select``: per query, 8 blocks of
+bw candidates in the block-planar layout [x(bw) | y(bw) | z(bw)] (candidate
+j = block·bw + e), d2 = ((x-qx)^2 + (y-qy)^2) + (z-qz)^2 one rounded
+operation at a time, +inf for a gated query, then k passes that each take
+the minimum with the lowest index on a tie and set it to +inf.
 
-The CUDA kernel is ``csrc/knn.cu``: one warp per query, which reads the
-query's row in place from the cell cache (the TPU kernel took a gathered
-(Q, 24·bw) row copy). The plain version beside it gathers the rows, in
-chunks, and runs :func:`select_passes`. The two agree bit for bit.
+Two entries share one CUDA kernel (``csrc/knn.cu``, its select in
+``csrc/knn_select.cuh``, which ``csrc/assoc.cu`` shares):
+
+* :func:`knn_grid`, the table entry: each query's 8 bucket rows straight
+  from the map table, as ``aloam_tpu/ops/gridmap.py:knn`` gathers them (a
+  bucket that an earlier cell of the block has is read once, the later
+  copy at the ``_FAR`` sentinel). ``gridmap.knn``, the single-stream
+  search, calls it. It has no cache and so no cache key: the knn cache's
+  key clamps each axis at 1023 cells from the stream's lowest (~2 km at
+  2 m cells), so two queries further apart share a slot there and one
+  reads the other's block; here, as in JAX's ``knn``, none can.
+* :func:`knn_select`, the cache entry: each query's candidate row of a knn
+  cache (``gridmap.knn_cache_b``), read in place; the association API
+  (``mapping._associations_b``) calls it through
+  ``gridmap.knn_from_cache_b``, since its cache is reused across rounds.
+
+The plain versions beside them gather the blocks, ``chunk`` queries at a
+time, and run :func:`select_passes`; kernel and plain agree bit for bit.
 """
 
 from __future__ import annotations
@@ -19,11 +32,12 @@ import torch
 
 from aloam_tpu_torch.ops import _build
 
-launches = 0  # kernel launches since the last reset
+launches = 0       # knn_select kernel launches since the last reset
+grid_launches = 0  # knn_grid kernel launches since the last reset
 
 _INF = float("inf")
-# queries per gather chunk of the plain version (bounds its (chunk, 24·bw)
-# row copy)
+# queries per gather chunk of the plain versions (bounds their (chunk,
+# 24·bw) row copy)
 _PLAIN_CHUNK = 8192
 
 
@@ -54,42 +68,54 @@ def select_passes(crow: torch.Tensor, q: torch.Tensor, poison: torch.Tensor,
     return torch.cat(ds, -1), torch.stack(nb, -2)
 
 
+def _chunked(n: int, chunk: int, fn):
+    """fn(slice) over the queries ``chunk`` at a time (0: 8192), the
+    (d2, nbrs) pieces concatenated."""
+    step = chunk or _PLAIN_CHUNK
+    parts = [fn(slice(s, s + step)) for s in range(0, n, step)]
+    return torch.cat([d for d, _ in parts]), torch.cat([b for _, b in parts])
+
+
 def knn_select_plain(cand_flat: torch.Tensor, row: torch.Tensor,
                      q: torch.Tensor, k: int, chunk: int = 0):
     """Plain PyTorch version of :func:`knn_select`: each query's row
     gathered, ``chunk`` queries at a time (0: 8192), then
     :func:`select_passes`."""
-    step = chunk or _PLAIN_CHUNK
-    ds, nbs = [], []
-    for s in range(0, q.shape[0], step):
-        qs = q[s:s + step]
-        d2, nb = select_passes(cand_flat[row[s:s + step].long()], qs[:, :3],
-                               qs[:, 3] > 0, k)
-        ds.append(d2)
-        nbs.append(nb)
-    return torch.cat(ds), torch.cat(nbs)
+    def part(s):
+        qs = q[s]
+        return select_passes(cand_flat[row[s].long()], qs[:, :3],
+                             qs[:, 3] > 0, k)
+    return _chunked(q.shape[0], chunk, part)
+
+
+def _check_kernel_shape(name: str, bw: int, k: int, *aligned) -> None:
+    if bw <= 0 or bw % 4 or bw > 64 or not 0 < k <= 8 \
+            or any(t.data_ptr() % 16 for t in aligned):
+        raise ValueError(f"{name}: the kernel takes bw a multiple of 4 up to "
+                         f"64, 0 < k <= 8 and 16-byte aligned candidates; "
+                         f"got bw {bw}, k {k}")
 
 
 def knn_select(cand_flat: torch.Tensor, row: torch.Tensor, q: torch.Tensor,
                k: int, chunk: int = 0):
-    """Gated k-NN of each query over its candidate row.
+    """Gated k-NN of each query over its candidate row (the cache entry).
 
     cand_flat (R, 8·3·bw) f32 block-planar candidate rows; row (N,) int32,
     each query's row in [0, R); q (N, 4) f32 [x, y, z, poison], poison > 0
     gates a query (all distances +inf). Returns (d2 (N, k), nbrs (N, k,
     3)) in pick order. CPU tensors take the plain version (``chunk`` bounds
-    its row copy); CUDA tensors launch the kernel (bw <= 64), which reads
-    the rows in place."""
+    its row copy); CUDA tensors launch the kernel (bw a multiple of 4 up to
+    64, k <= 8), which reads the rows in place."""
     if all(t.device.type == "cpu" for t in (cand_flat, row, q)):
         return knn_select_plain(cand_flat, row, q, k, chunk)
     _build.require_cuda("knn_select", cand_flat, row, q,
                         dtypes=(torch.float32, torch.int32, torch.float32))
     n = q.shape[0]
     w = cand_flat.shape[1]
-    if tuple(q.shape) != (n, 4) or tuple(row.shape) != (n,) or w % 24 \
-            or not 0 < w // 24 <= 64 or not 0 < k <= w // 3:
+    if tuple(q.shape) != (n, 4) or tuple(row.shape) != (n,) or w % 24:
         raise ValueError(f"knn_select: cand_flat {tuple(cand_flat.shape)}, "
-                         f"row {tuple(row.shape)}, q {tuple(q.shape)}, k {k}")
+                         f"row {tuple(row.shape)}, q {tuple(q.shape)}")
+    _check_kernel_shape("knn_select", w // 24, k, cand_flat)
     d2 = torch.empty((n, k), dtype=torch.float32, device=q.device)
     nbrs = torch.empty((n, k, 3), dtype=torch.float32, device=q.device)
     _build.launch("aloam_knn_select", q.device, cand_flat.data_ptr(),
@@ -97,4 +123,53 @@ def knn_select(cand_flat: torch.Tensor, row: torch.Tensor, q: torch.Tensor,
                   nbrs.data_ptr(), cand_flat.shape[0], n, w // 24, k)
     global launches
     launches += 1
+    return d2, nbrs
+
+
+def knn_grid_plain(pts: torch.Tensor, q: torch.Tensor, k: int,
+                   cell_size: float, radius: float, chunk: int = 0):
+    """Plain PyTorch version of :func:`knn_grid`: each query's 8 bucket
+    rows gathered from the table (``gridmap.block_buckets``), duplicates
+    at ``_FAR``, ``chunk`` queries at a time (0: 8192), then
+    :func:`select_passes`."""
+    # gridmap imports this module; its hash is needed only here
+    from aloam_tpu_torch.ops.gridmap import _FAR, block_buckets
+
+    def part(s):
+        qs = q[s]
+        hh, dup = block_buckets(qs, pts.shape[0], cell_size, radius)
+        crow = pts[hh.long()].masked_fill_(dup[..., None], _FAR)
+        ungated = torch.zeros(qs.shape[:1], dtype=torch.bool, device=q.device)
+        return select_passes(crow.reshape(qs.shape[0], -1), qs, ungated, k)
+    return _chunked(q.shape[0], chunk, part)
+
+
+def knn_grid(pts: torch.Tensor, q: torch.Tensor, k: int, cell_size: float,
+             radius: float, chunk: int = 0):
+    """Exact k-NN of each query over its 2×2×2 bucket block (the table
+    entry).
+
+    pts (H, 3·bw) f32 bucket-planar map table (``GridMap.pts`` of one
+    stream, H a power of two); q (N, 3) f32. A query's block is the 8
+    cells at floor((q - radius) / cell_size) + ``_offsets8``, hashed as
+    ``gridmap._hash``. Returns (d2 (N, k), nbrs (N, k, 3)) in pick order.
+    CPU tensors take the plain version (``chunk`` bounds its block copy);
+    CUDA tensors launch the kernel (bw a multiple of 4 up to 64, k <= 8),
+    which reads the bucket rows in place."""
+    if pts.device.type == "cpu" and q.device.type == "cpu":
+        return knn_grid_plain(pts, q, k, cell_size, radius, chunk)
+    _build.require_cuda("knn_grid", pts, q,
+                        dtypes=(torch.float32, torch.float32))
+    n, (h_n, w) = q.shape[0], pts.shape
+    if tuple(q.shape) != (n, 3) or w % 3 or h_n & (h_n - 1):
+        raise ValueError(f"knn_grid: pts {tuple(pts.shape)}, q "
+                         f"{tuple(q.shape)}")
+    _check_kernel_shape("knn_grid", w // 3, k, pts)
+    d2 = torch.empty((n, k), dtype=torch.float32, device=q.device)
+    nbrs = torch.empty((n, k, 3), dtype=torch.float32, device=q.device)
+    _build.launch("aloam_knn_grid", q.device, pts.data_ptr(), q.data_ptr(),
+                  d2.data_ptr(), nbrs.data_ptr(), h_n, n, w // 3, k,
+                  cell_size, radius)
+    global grid_launches
+    grid_launches += 1
     return d2, nbrs

@@ -60,12 +60,19 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    be < 0.5 m);
 7. single-stream kernels: each of the single-stream step's six kernels
    against its plain version, timed and bounded as in phase 4, at the
-   inputs frame 1 of the single-stream step gave them, and
-   ``knn_select`` at one B = 16 ``corner_associations_b`` /
-   ``surf_associations_b`` call on the map phase 6 left;
+   inputs frame 1 of the single-stream step gave them (``knn_select``:
+   the table entry, ``ops/knn.knn_grid``, which ``gridmap.knn`` calls),
+   and the cache entry (``knn_select_rows``, ``ops/knn.knn_select``) at
+   one B = 16 ``corner_associations_b`` / ``surf_associations_b`` call on
+   the map phase 6 left, whose launches it counts; then both entries
+   bit-equal to their plain versions on adversarial tables
+   (``_torch_scenes.knn_case``: H = 8, an empty table, fewer than 5 real
+   candidates, equal distances, negative coordinates, queries on cell
+   boundaries, ±1e5 m, Q = 1 and 1001; Bk 32 and 48);
 8. single: ``pipeline.step`` over the single-stream scene's 8 frames at
-   ``PRESETS["HDL-64"]`` with the kernels (its six launch counters, knn
-   among them, must rise; ``ring_seg`` > 0) and with the plain versions;
+   ``PRESETS["HDL-64"]`` with the kernels (its six launch counters, the
+   table entry's among them, must rise; ``ring_seg`` > 0) and with the
+   plain versions;
    map poses as in phase 6; ms/scan, peak device memory, a staged kernel
    run as in phase 6, and the odometry and mapped ATE (< 0.5 m);
 9. cli: ``aloam_tpu_torch.cli.main`` over 4 synthetic HDL-64 frames with a
@@ -74,7 +81,8 @@ of JAX or of the JAX package. Phases, each printing its own lines:
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on the main path, worst error, kernel ms back to back, device
-ms, plain and bound ms at its largest input); the last line is
+ms, plain and bound ms at its largest input; ``knn_select_rows``'s
+launches are the association call's of phase 7); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a CUDA card.
 """
@@ -97,9 +105,9 @@ import numpy as np
 # the seeded adversarial scenes, shared with the CPU tests (numpy only)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from _torch_scenes import (MERGE_CASES, SELECT_CASES,  # noqa: E402
-                           merge_case, queries_near, segmented_reference,
-                           select_case)
+from _torch_scenes import (KNN_CASES, MERGE_CASES,  # noqa: E402
+                           SELECT_CASES, knn_case, merge_case, queries_near,
+                           segmented_reference, select_case)
 
 B = 16
 N_FRAMES = 8           # bench.py's batched default
@@ -136,10 +144,17 @@ KERNELS = {
     "merge_tiles": ("insert", "merge_rows", "merge_rows_plain",
                     "aloam_tpu_torch/csrc/insert.cu",
                     "aloam_tpu/ops/pallas_insert.py:167"),
-    "knn_select": ("knn", "knn_select", "knn_select_plain",
+    # the table entry (gridmap.knn, the single-stream search) and the cache
+    # entry (the association API) of one kernel
+    "knn_select": ("knn", "knn_grid", "knn_grid_plain",
                    "aloam_tpu_torch/csrc/knn.cu",
                    "aloam_tpu/ops/pallas_knn.py:108"),
+    "knn_select_rows": ("knn", "knn_select", "knn_select_plain",
+                        "aloam_tpu_torch/csrc/knn.cu",
+                        "aloam_tpu/ops/pallas_knn.py:108"),
 }
+# each wrapper's launch counter, where it is not the module's `launches`
+COUNTERS = {"knn_select": "grid_launches"}
 # kernels that update their first k arguments in place (the map tables)
 IN_PLACE = {"merge_tiles": 2}
 # the kernels each path runs
@@ -177,6 +192,15 @@ SINGLE_STAGES = {
     "map.knn": ("aloam_tpu_torch.ops.gridmap", "knn"),
     "map.fit": ("aloam_tpu_torch.ops.assoc", "assoc_xla"),
 }
+
+
+def launch_count(mods, name: str) -> int:
+    return getattr(mods[name], COUNTERS.get(name, "launches"))
+
+
+def reset_counts(mods, names=tuple(KERNELS)) -> None:
+    for name in names:
+        setattr(mods[name], COUNTERS.get(name, "launches"), 0)
 
 
 def fail(msg: str) -> None:
@@ -334,7 +358,7 @@ def compare(name, got, want, kind=None):
       merge_tiles            both tables bit-equal as a whole and the
                              counts exact (no arithmetic but the midpoint
                              and the priority formula, identical);
-      knn_select             d2 and neighbours exact (the same rounded
+      knn_select(_rows)      d2 and neighbours exact (the same rounded
                              operations in the same order, lowest-index
                              ties)."""
     import torch
@@ -346,7 +370,8 @@ def compare(name, got, want, kind=None):
         err = d.max().item()
         ok = bool((d <= 1e-5 + 1e-6 * want.abs()).all()) \
             and torch.equal(got[-1], want[-1])
-    elif name in ("window_mins", "merge_tiles", "knn_select"):
+    elif name in ("window_mins", "merge_tiles", "knn_select",
+                  "knn_select_rows"):
         err = max(absdiff(g, w).max().item() for g, w in zip(got, want))
         ok = all(torch.equal(g, w) for g, w in zip(got, want))
     elif name == "assoc_cell":
@@ -401,16 +426,37 @@ def kernel_work(name, args, kw, out):
     """(bytes, flops) a call must cost at least: every input read once and
     every output written once; the arithmetic these inputs need, 8 flops
     per d2 (window_mins: every (query, point) pair of pass 1 and the rows
-    each query's pass 2 scans; knn_select and assoc_cell: every candidate
-    of each query's row) and one add per element and channel of the
-    segmented scan. select_rings, lm_fused and merge_tiles count bytes
-    only: their arithmetic per byte is far below the card's balance. The
-    in-place merge counts the bucket rows it reads and writes (the used
-    rows, not the whole table), their bucket ids and points, the counts
-    in and the stats out."""
+    each query's pass 2 scans; knn_select, knn_select_rows and assoc_cell:
+    every candidate of each live query's block) and one add per element
+    and channel of the segmented scan. select_rings, lm_fused and
+    merge_tiles count bytes only: their arithmetic per byte is far below
+    the card's balance. The in-place merge counts the bucket rows it reads
+    and writes (the used rows, not the whole table), their bucket ids and
+    points, the counts in and the stats out. The knn entries count the
+    rows their queries name, each once, not the whole table or cache: the
+    table entry the distinct bucket rows of the queries' blocks (a
+    duplicate bucket is read once), the cache entry the distinct rows of
+    its live queries (a gated query reads its row's first candidate)."""
+    import torch
     nbytes = _nbytes(list(args)) + _nbytes(list(kw.values())) + _nbytes(out)
     flops = 0
-    if name == "merge_tiles":
+    if name == "knn_select":
+        from aloam_tpu_torch.ops.gridmap import block_buckets
+        pts, q, cell, radius = args[0], args[1], args[3], args[4]
+        hh, dup = block_buckets(q, pts.shape[0], cell, radius)
+        rows = hh[~dup].unique().numel()
+        nbytes = rows * pts.shape[1] * 4 + _nbytes([q]) + _nbytes(out)
+        flops = 8 * q.shape[0] * 8 * (pts.shape[1] // 3)
+    elif name == "knn_select_rows":
+        cand, row, q4 = args[0], args[1], args[2]
+        live = q4[:, 3] <= 0
+        rows = row[live].unique()
+        gated = row[~live].unique()
+        n_gated = int((~torch.isin(gated, rows)).sum())
+        nbytes = (rows.numel() * cand.shape[1] * 4 + n_gated * 12
+                  + _nbytes([row, q4]) + _nbytes(out))
+        flops = 8 * int(live.sum()) * (cand.shape[1] // 3)
+    elif name == "merge_tiles":
         aux, slot_h, cnt, pvox = args[1], args[2], args[3], args[8]
         used = cnt > 0
         row = 8 * (aux.shape[-1] // 5) * 4                # 3 + 5 planes
@@ -426,7 +472,7 @@ def kernel_work(name, args, kw, out):
                                              ring_seg).sum()))
     elif name == "segmented_prefix_sums":
         flops = args[0].numel()
-    elif name in ("knn_select", "assoc_cell"):
+    elif name == "assoc_cell":
         flops = 8 * args[2].shape[0] * 8 * (args[0].shape[1] // 24)
     return nbytes, flops
 
@@ -549,10 +595,12 @@ def check_kernels(pipeline, mods, cfg, frames, device, card):
 def check_single_kernels(pipeline, mods, cfg_b, map_state, odom_state,
                          cfg_1, single, device, results, card):
     """Phase 7: the single-stream step's kernels at the inputs its frame 1
-    gives them, and knn_select at one B = 16 corner_associations_b and
-    surf_associations_b call on
-    ``map_state`` (phase 6's last map) with the last frame's handoff
-    clouds, downsampled to the stack caps."""
+    gives them (knn_select: the table entry), and the cache entry
+    (knn_select_rows) at one B = 16 corner_associations_b and
+    surf_associations_b call on ``map_state`` (phase 6's last map) with
+    the last frame's handoff clouds, downsampled to the stack caps: that
+    call is the association API's path, its launches counted from 0.
+    Returns the cache entry's launches in it."""
     import torch
     from aloam_tpu_torch import mapping as mp
     from aloam_tpu_torch.frontend.voxel import voxel_downsample_masked_b
@@ -578,8 +626,15 @@ def check_single_kernels(pipeline, mods, cfg_b, map_state, odom_state,
             if int(f.mask.sum()) == 0:
                 fail(f"{fn.__name__}: no factors on the B={B} map")
 
-    recorded.update(record_inputs(mods, ("knn_select",), assoc_b))
+    reset_counts(mods, ("knn_select_rows",))
+    recorded.update(record_inputs(mods, ("knn_select_rows",), assoc_b))
+    rows_launches = launch_count(mods, "knn_select_rows")
+    say(f"[kernel] the B={B} association API launched knn_select_rows "
+        f"{rows_launches} times")
+    if rows_launches < 1:
+        fail("the association API never launched knn_select_rows")
     check_recorded(mods, recorded, results, card)
+    return rows_launches
 
 
 def check_adversarial(mods, device, results, card):
@@ -910,6 +965,49 @@ def check_adversarial_merge(mods, device, card):
                 fail("merge_tiles: the evictions case evicted nothing")
 
 
+def check_adversarial_knn(mods, device, results, card):
+    """Phase 7, second part: both knn entries bit-equal to their plain
+    versions on the tables of ``_torch_scenes.knn_case`` at Bk 32 and 48
+    (cell 2 m, radius 1 m): random points with Q = 1001 (not a multiple of
+    a block's queries), H = 8 (a block's cells share buckets), an empty
+    table, fewer than 5 real candidates (ties among the _FAR slots), points
+    repeated in a bucket (equal distances), negative coordinates, queries
+    on cell boundaries, clusters near ±1e5 m (the 32-bit hash wraps),
+    Q = 1. The table entry reads the table; the cache entry gets the same
+    blocks as candidate rows, every 7th query gated (five picks of
+    candidate 0 at +inf)."""
+    import torch
+    from aloam_tpu_torch.ops.gridmap import _FAR, block_buckets
+    mod = mods["knn_select"]
+    rng = np.random.default_rng(9)
+    worst = {"knn_select": 0.0, "knn_select_rows": 0.0}
+    for bk in (32, 48):
+        for case in KNN_CASES:
+            table, q = (torch.from_numpy(a).to(device)
+                        for a in knn_case(rng, case, bk))
+            args = (table, q, 5, 2.0, 1.0)
+            got = mod.knn_grid(*args)
+            worst["knn_select"] = max(worst["knn_select"], compare(
+                "knn_select", got, mod.knn_grid_plain(*args)))
+            hh, dup = block_buckets(q, table.shape[0], 2.0, 1.0)
+            rows = table[hh.long()].masked_fill_(dup[..., None], _FAR)
+            q4 = torch.cat([q, torch.zeros_like(q[:, :1])], 1)
+            q4[::7, 3] = 1.0
+            rargs = (rows.reshape(q.shape[0], -1),
+                     torch.arange(q.shape[0], dtype=torch.int32,
+                                  device=device), q4, 5)
+            rgot = mod.knn_select(*rargs)
+            worst["knn_select_rows"] = max(worst["knn_select_rows"], compare(
+                "knn_select_rows", rgot, mod.knn_select_plain(*rargs)))
+            say(f"[adversarial] knn {case} Bk {bk}: table "
+                f"{tuple(table.shape)}, {q.shape[0]} queries, "
+                f"{int(dup.any(1).sum())} with a "
+                f"duplicate bucket, {int((got[0][:, 4] < 1.0).sum())} with 5 "
+                f"gated neighbours: both entries bit-equal to plain ({card})")
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+
 @contextlib.contextmanager
 def ring_seg_spy(mods, tag):
     """Record the ``ring_seg`` of every window_mins call in the with-block;
@@ -932,12 +1030,11 @@ def ring_seg_spy(mods, tag):
 def run_front(pipeline, mods, cfg, frames, device, card):
     """Phase 5: front_step_b with the kernels and with the plain
     versions."""
-    for name in FRONT_KERNELS:
-        mods[name].launches = 0
+    reset_counts(mods, FRONT_KERNELS)
     with ring_seg_spy(mods, "front"):
         k_outs, k_ms, _ = run_frames(pipeline.front_step_b, pipeline, cfg,
                                      frames, device)
-    launches = {name: mods[name].launches for name in FRONT_KERNELS}
+    launches = {name: launch_count(mods, name) for name in FRONT_KERNELS}
     say(f"[front] kernel launches over {len(frames)} frames: {launches}")
     if min(launches.values()) < 1:
         fail(f"a kernel of the front path was never launched: {launches}")
@@ -1146,14 +1243,13 @@ def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
     launches, final kernel-run state, the kernel run's peak device memory
     in bytes)."""
     import torch
-    for mod in mods.values():
-        mod.launches = 0
+    reset_counts(mods)
     torch.cuda.reset_peak_memory_stats(device)
     with ring_seg_spy(mods, tag):
         k_outs, k_ms, st = run_frames(step, pipeline, cfg, frames, device,
                                       batch)
     peak = torch.cuda.max_memory_allocated(device)
-    launches = {name: mods[name].launches for name in KERNELS}
+    launches = {name: launch_count(mods, name) for name in KERNELS}
     say(f"[{tag}] kernel launches over {len(frames)} frames: {launches}")
     if min(launches[n] for n in names) < 1:
         fail(f"a kernel of the {tag} path was never launched: {launches}")
@@ -1161,7 +1257,7 @@ def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
                   for n, spec in KERNELS.items()]):
         p_outs, p_ms, _ = run_frames(step, pipeline, cfg, frames, device,
                                      batch)
-    if any(mods[n].launches != launches[n] for n in KERNELS):
+    if any(launch_count(mods, n) != launches[n] for n in KERNELS):
         fail(f"the plain {tag} run launched a kernel")
     return k_outs, k_ms, p_outs, p_ms, launches, st, peak
 
@@ -1320,9 +1416,11 @@ def main() -> None:
         f"PRESETS['HDL-64'] (n_raw {cfg_1.n_raw}, ring_cap "
         f"{cfg_1.ring_cap}, less_flat_cap {cfg_1.less_flat_cap}) "
         f"({time.perf_counter() - t0:.1f} s)")
-    check_single_kernels(pipeline, mods, cfg, st_b.map, st_b.odom, cfg_1,
-                         single, device, results, card)
+    launches["knn_select_rows"] = check_single_kernels(
+        pipeline, mods, cfg, st_b.map, st_b.odom, cfg_1, single, device,
+        results, card)
     del st_b
+    check_adversarial_knn(mods, device, results, card)
     single_launches = run_single(pipeline, mods, cfg_1, single, sgt, device,
                                  card)
     launches["knn_select"] = single_launches["knn_select"]

@@ -192,3 +192,76 @@ def merge_case(rng, case: str, bsz: int = 2, h: int = 512, cap_c: int = 64,
     return (pts.reshape(bsz, h, 3 * bk), aux.reshape(bsz, h, 5 * bk),
             slot_h, cnt, q[0], q[1], q[2], qi, pvox.astype(np.int32), center,
             window)
+
+
+KNN_CASES = ("random", "tiny_table", "empty", "few", "ties", "negative",
+             "boundaries", "far", "single")
+_P = (73856093, 19349663, 83492791)
+OFFSETS8 = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
+                    -1).reshape(8, 3).astype(np.int32)
+
+
+def cell_hash(cells, table_size: int):
+    """The map's spatial hash in 32-bit unsigned arithmetic, as the knn
+    kernel computes it: (cx·P1) ^ (cy·P2) ^ (cz·P3) mod 2^32, masked to the
+    table (table_size a power of two; 0 keeps all 32 bits). cells (..., 3)
+    int32; returns uint32."""
+    u = np.asarray(cells, np.int32).astype(np.uint32)
+    h = (u[..., 0] * np.uint32(_P[0])) ^ (u[..., 1] * np.uint32(_P[1])) \
+        ^ (u[..., 2] * np.uint32(_P[2]))
+    return h & np.uint32(table_size - 1) if table_size else h
+
+
+def grid_table(pts, table_size: int, bk: int, cell: float = 2.0):
+    """A single-stream map table (table_size, 3·bk) f32, bucket-planar
+    [x | y | z], holding ``pts`` (N, 3) f32 in their cells' buckets in
+    order (a full bucket drops the rest); empty slots at 1e9 (_FAR)."""
+    table = np.full((table_size, 3, bk), 1e9, np.float32)
+    fill = np.zeros(table_size, np.int64)
+    cells = np.floor(pts / np.float32(cell)).astype(np.int32)
+    for p, b in zip(pts, cell_hash(cells, table_size)):
+        if fill[b] < bk:
+            table[b, :, fill[b]] = p
+            fill[b] += 1
+    return table.reshape(table_size, 3 * bk)
+
+
+def knn_case(rng, case: str, bk: int):
+    """gridmap.knn inputs that press on one rule of the table search:
+    (table (H, 3·bk) f32, queries (Q, 3) f32); cell 2 m, radius 1 m. Cases:
+    random points and queries near them (Q = 1001, not a multiple of a
+    block's queries); H = 8, so a block's cells share buckets; an empty
+    table (every slot at _FAR); 40 points over 400 m (fewer than 5 real
+    candidates, ties among the _FAR slots); points repeated in their
+    bucket and queries on points (equal distances); only negative
+    coordinates; queries exactly on cell boundaries (q - radius a multiple
+    of the cell); clusters near ±1e5 m (the 32-bit hash wraps); Q = 1."""
+    h, q_n = 4096, 1001
+    if case == "tiny_table":
+        h = 8
+    pts = rng.uniform((-30, -30, -5), (30, 30, 5), (6000, 3))
+    if case == "empty":
+        pts = pts[:0]
+    elif case == "few":
+        pts = rng.uniform(-200, 200, (40, 3))
+    elif case == "ties":
+        pts = np.repeat(rng.uniform(-8, 8, (1500, 3)), 3, axis=0)
+    elif case == "negative":
+        pts = rng.uniform(-60, -1, (6000, 3))
+    elif case == "far":
+        signs = rng.choice([-1.0, 1.0], (6000, 3))
+        pts = 1e5 * signs + rng.uniform(-10, 10, (6000, 3))
+    elif case not in ("random", "tiny_table", "boundaries", "single"):
+        raise ValueError(case)
+    pts = pts.astype(np.float32)
+    if len(pts):
+        q = pts[rng.integers(0, len(pts), q_n)] + rng.normal(0, 0.5, (q_n, 3))
+    else:
+        q = rng.uniform(-30, 30, (q_n, 3))
+    if case == "ties":
+        q[::3] = pts[rng.integers(0, len(pts), len(q[::3]))]
+    elif case == "boundaries":
+        q = 2.0 * rng.integers(-15, 15, (q_n, 3)) + 1.0
+    elif case == "single":
+        q = q[:1]
+    return grid_table(pts, h, bk), q.astype(np.float32)

@@ -664,9 +664,29 @@ def test_wrappers_refuse_non_cuda_devices():
         knn_op.knn_select(torch.empty(300, 768, **meta),
                           torch.empty(256, dtype=torch.int32, **meta),
                           torch.empty(256, 4, **meta), 5)
+    with pytest.raises(ValueError):
+        knn_op.knn_grid(torch.empty(64, 144, **meta),
+                        torch.empty(256, 3, **meta), 5, 2.0, 1.0)
     assert seg_op.launches == select_op.launches == 0
     assert odom_op.launches == lm_op.launches == 0
     assert assoc_op.launches == insert_op.launches == knn_op.launches == 0
+    assert knn_op.grid_launches == 0
+
+
+def test_c_signatures_match_the_sources():
+    """Every kernel entry point of csrc/*.cu (``extern "C" int``) has a
+    ctypes signature in _build.SIGNATURES with as many arguments, and
+    every signature names one: a missing or short signature would pass
+    pointers as 32-bit ints."""
+    import re
+
+    from aloam_tpu_torch.ops import _build
+    found = {}
+    for src in _build.sources():
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)',
+                             src.read_text()):
+            found[m.group(1)] = len(m.group(2).split(","))
+    assert found == {n: len(a) for n, a in _build.SIGNATURES.items()}
 
 
 def test_build_key_follows_sources(tmp_path, monkeypatch):

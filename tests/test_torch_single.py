@@ -1,5 +1,6 @@
 """The PyTorch port's single-stream path against the JAX package: the
-``knn_select`` module, ``gridmap.knn`` / ``knn_b``, the association API,
+``ops/knn`` module (its cache entry ``knn_select`` and its table entry
+``knn_grid``), ``gridmap.knn`` / ``knn_b``, the association API,
 ``mapping.mapping_step``, the single-stream ``pipeline.step``, the
 checkpoint and the CLI.
 
@@ -46,6 +47,8 @@ from aloam_tpu_torch.ops import gridmap
 from aloam_tpu_torch.ops import knn as knn_op
 from aloam_tpu_torch.types import PointCloud
 from aloam_tpu_torch.utils import checkpoint as ckpt
+from _torch_scenes import (KNN_CASES, OFFSETS8, cell_hash, grid_table,
+                           knn_case)
 
 torch.set_num_threads(1)
 
@@ -187,6 +190,91 @@ def test_knn_select_plain_matches_jax_kernel(rng, bw):
     assert knn_op.launches == 0
 
 
+# --- knn_grid: the table entry ----------------------------------------------
+
+def _grid_ref(table, q, k=5, cell=2.0, radius=1.0):
+    """numpy mirror of the table-entry kernel: base cells floor((q -
+    radius) / cell) in f32, the uint32 hash of the 8 block cells, a bucket
+    an earlier cell has already at _FAR, then _select_ref. Returns ((d2,
+    nbrs), the blocks as (Q, 24·bk) rows, dup (Q, 8))."""
+    base = np.floor((q - np.float32(radius)) / np.float32(cell)).astype(
+        np.int32)
+    hh = cell_hash(base[:, None, :] + OFFSETS8, table.shape[0]).astype(int)
+    dup = ((hh[:, :, None] == hh[:, None, :])
+           & np.tril(np.ones((8, 8), bool), -1)).any(-1)
+    crow = table[hh]
+    crow[dup] = 1e9
+    rows = crow.reshape(len(q), -1)
+    q4 = np.concatenate([q, np.zeros((len(q), 1), np.float32)], 1)
+    return _select_ref(rows, np.arange(len(q)), q4, k), rows, dup
+
+
+@pytest.mark.parametrize("bk", [32, 48])
+@pytest.mark.parametrize("case", KNN_CASES)
+def test_knn_grid_cases_match_numpy(rng, case, bk):
+    """knn_grid (its plain version, the CPU route) on the tables of
+    _torch_scenes.knn_case, which chip_smoke's knn phase also runs:
+    bit-equal to the numpy mirror of the kernel (the uint32 hash,
+    duplicate buckets at _FAR, every operation rounded on its own, the
+    lowest index on a tie), chunked or not, from a column-order query
+    array too, launching nothing. The cache
+    entry over the same blocks as candidate rows, every 7th query gated:
+    bit-equal to the numpy select, a gated query picking candidate 0 five
+    times at +inf. Each case shows the rule it presses on."""
+    table, q = knn_case(rng, case, bk)
+    (rd2, rnb), rows, dup = _grid_ref(table, q)
+    # a query array in column order, as the surf stack hands it over
+    for qq, chunk in ((q, 0), (q, 97), (np.asfortranarray(q), 0)):
+        d2, nb = knn_op.knn_grid(_t(table), _t(qq), 5, 2.0, 1.0, chunk)
+        np.testing.assert_array_equal(d2.numpy(), rd2)
+        np.testing.assert_array_equal(nb.numpy(), rnb)
+    assert knn_op.grid_launches == 0
+    real = rd2 < 1e10                      # not a _FAR slot
+    if case == "tiny_table":
+        assert dup.any(axis=1).mean() > 0.5
+    elif case == "empty":
+        assert not real.any()
+    elif case == "few":
+        assert (real.sum(1) < 5).mean() > 0.9
+    elif case == "ties":
+        assert (rd2[:, 0] == rd2[:, 1]).mean() > 0.5
+    elif case == "boundaries":
+        assert ((q - 1.0) % 2.0 == 0).all()
+    elif case == "far":
+        assert (np.abs(q) > 9e4).all() and real[:, 0].mean() > 0.9
+    elif case == "single":
+        assert q.shape == (1, 3)
+
+    q4 = np.concatenate([q, np.zeros((len(q), 1), np.float32)], 1)
+    q4[::7, 3] = 1.0
+    row = np.arange(len(q), dtype=np.int32)
+    d2, nb = knn_op.knn_select(_t(rows), _t(row), _t(q4), 5)
+    sd2, snb = _select_ref(rows, row, q4)
+    np.testing.assert_array_equal(d2.numpy(), sd2)
+    np.testing.assert_array_equal(nb.numpy(), snb)
+    assert np.isinf(d2.numpy()[::7]).all()
+    np.testing.assert_array_equal(nb.numpy()[::7], np.broadcast_to(
+        rows[::7, None, [0, bk, 2 * bk]], (len(q[::7]), 5, 3)))
+
+
+def test_cell_hash_mirror_equals_mix(rng):
+    """The kernel's hash in 32-bit unsigned arithmetic (numpy mirror,
+    _torch_scenes.cell_hash) equals gridmap._mix bit for bit, and masked
+    to the table gridmap._hash, on negative and large cells where the
+    products wrap."""
+    cells = np.concatenate([
+        rng.integers(-60000, 60000, size=(500, 3)),
+        rng.integers(-2 ** 31, 2 ** 31 - 1, size=(100, 3)),
+        np.array([[0, 0, 0], [-1, -1, -1], [50000, -50000, 1],
+                  [2 ** 31 - 1, -2 ** 31, 7]])]).astype(np.int32)
+    got = gridmap._mix(*(_t(cells[:, c]) for c in range(3))).numpy()
+    np.testing.assert_array_equal(cell_hash(cells, 0).view(np.int32), got)
+    for ts in (8, 1024, 16384):
+        np.testing.assert_array_equal(
+            cell_hash(cells, ts).astype(np.int32),
+            gridmap._hash(_t(cells), ts).numpy())
+
+
 # --- gridmap.knn / knn_b ---------------------------------------------------
 
 def _gated_match(d2, nb, jd2, jnb, gate=1.0):
@@ -201,13 +289,13 @@ def _gated_match(d2, nb, jd2, jnb, gate=1.0):
 
 
 def test_knn_and_knn_b_match_jax(jax_run):
-    """gridmap.knn (knn_b at B = 1 with cell_cap = Q) and knn_b against
-    JAX's knn and knn_b on the map after frame 2, with frame 2's queries
-    and some far from any map entry: the gated 5-NN within 1e-5 (JAX's
-    pin of knn_b to knn, tests/test_batched_kernels.py:216); knn_b at a
-    cell cap of 32 spills as many queries as JAX's. Slots past
-    the gate differ by design: a duplicate bucket is +inf in JAX's knn and
-    at the _FAR sentinel in knn_b."""
+    """gridmap.knn (the table entry, knn_grid) and knn_b against JAX's knn
+    and knn_b on the map after frame 2, with frame 2's queries and some
+    far from any map entry: the gated 5-NN within 1e-5 (JAX's pin of
+    knn_b to knn, tests/test_batched_kernels.py:216); knn_b at a cell cap
+    of 32 spills as many queries as JAX's. Slots past the gate differ by
+    design: a duplicate bucket is +inf in JAX's knn and at the _FAR
+    sentinel in the port."""
     _, _, states, _ = jax_run
     grid = states[2].map.surf
     q = _queries(jax_run, 2)[:600]
@@ -227,6 +315,56 @@ def test_knn_and_knn_b_match_jax(jax_run):
         gg, qq, 5, CFG.knn_cell, CFG.knn_radius, cell_cap=32))(g1, q[None])
     _gated_match(bd2[0], bnb[0], jb[0][0], jb[1][0])
     assert int(bsp.sum()) == int(jb[2]) > 0
+
+
+def test_knn_grid_equals_knn_b_and_builds_no_cache(jax_run, monkeypatch):
+    """gridmap.knn's plain route (knn_grid_plain) is bit-equal to knn_b at
+    B = 1 with cell_cap = Q, the route it replaced, on the map after frame
+    2 with frame 2's queries and some far from any entry (no two of them
+    clash on the cache key), and it never builds a knn cache:
+    knn_cache_b is patched to raise."""
+    _, _, states, _ = jax_run
+    grid = _grid1(states[2].map.surf)
+    q = _queries(jax_run, 2)
+    q = _t(np.concatenate([q, q[:40] + np.float32(30.0)]).astype(np.float32))
+    g1 = gridmap.GridMap(grid.pts[None], grid.aux[None])
+    bd2, bnb, _ = gridmap.knn_b(g1, q[None], 5, CFG.knn_cell, CFG.knn_radius,
+                                cell_cap=q.shape[0])
+
+    def boom(*a, **kw):
+        raise AssertionError("knn_cache_b called")
+
+    monkeypatch.setattr(gridmap, "knn_cache_b", boom)
+    d2, nb = gridmap.knn(grid, q, 5, CFG.knn_cell, CFG.knn_radius)
+    assert torch.equal(d2, bd2[0]) and torch.equal(nb, bnb[0])
+    assert (d2[:, 4] < CFG.map_knn_gate_sq).sum() > 100
+
+
+def test_knn_spans_more_than_1023_cells(rng):
+    """Two map clusters 2.5 km apart on x (1250 cells, past the knn cache
+    key's clamp at 1023 cells from the lowest): gridmap.knn matches JAX's
+    knn on the gated slots within 1e-5 at queries near both, while
+    knn_b(cell_cap=Q) hands the far queries blocks of other cells and
+    loses gated neighbours there."""
+    near = rng.uniform((-20, -20, -3), (20, 20, 3), (4000, 3))
+    pts = np.concatenate([near, near + (2500.0, 0.0, 0.0)]).astype(
+        np.float32)
+    table = grid_table(pts, 8192, 48)
+    aux = np.zeros((8192, 5 * 48), np.int32)
+    q = (pts[rng.integers(0, len(pts), 1200)]
+         + rng.normal(0, 0.3, (1200, 3))).astype(np.float32)
+    d2, nb = gridmap.knn(gridmap.GridMap(_t(table), _t(aux)), _t(q), 5,
+                         CFG.knn_cell, CFG.knn_radius)
+    jd2, jnb = jax.jit(lambda g, qq: jgrid.knn(
+        g, qq, 5, CFG.knn_cell, CFG.knn_radius))(
+            jgrid.GridMap(pts=table, aux=aux), q)
+    g = _gated_match(d2, nb, jd2, jnb)
+    far = q[:, 0] > 1000
+    assert g[far].sum() > 1000 and g[~far].sum() > 1000
+    bd2, _, _ = gridmap.knn_b(
+        gridmap.GridMap(_t(table[None]), _t(aux[None])), _t(q[None]), 5,
+        CFG.knn_cell, CFG.knn_radius, cell_cap=len(q))
+    assert (bd2[0].numpy()[far] < 1.0).sum() < g[far].sum()
 
 
 # --- the association API -----------------------------------------------------
@@ -327,15 +465,18 @@ def test_associations_b_match_jax(jax_run, kind):
 
 def test_plain_paths_never_reach_the_knn_kernel(jax_run, monkeypatch):
     """The batched path's plain association (assoc_cell_plain) and
-    mapping_step_b run the plain select directly, never the dispatching
-    knn_select (which would launch the kernel for CUDA tensors); the
-    single-stream mapping_step does go through it."""
+    mapping_step_b run the plain select directly, never a dispatching knn
+    entry (knn_select or knn_grid, which would launch the kernel for CUDA
+    tensors); the single-stream mapping_step goes through knn_grid."""
     xyz, mask, _, _ = jax_run
 
-    def boom(*a, **kw):
-        raise AssertionError("knn_select called")
+    def booms(name):
+        def boom(*a, **kw):
+            raise AssertionError(f"{name} called")
+        return boom
 
-    monkeypatch.setattr(knn_op, "knn_select", boom)
+    for name in ("knn_select", "knn_grid"):
+        monkeypatch.setattr(knn_op, name, booms(name))
     st = tp.init_state(CFG, 1, "cpu")
     for f in range(2):
         st, out = tp.step_b(st, _t(xyz[f][None]), _t(mask[f][None]), CFG)
@@ -344,7 +485,7 @@ def test_plain_paths_never_reach_the_knn_kernel(jax_run, monkeypatch):
     q8 = torch.zeros(256, 8)
     assoc_op.assoc_cell_plain(cand, torch.zeros(1, dtype=torch.int32), q8,
                               "surf", 1.0)
-    with pytest.raises(AssertionError, match="knn_select called"):
+    with pytest.raises(AssertionError, match="knn_grid called"):
         tp.step(st, _t(xyz[2]), _t(mask[2]), CFG)
 
 
