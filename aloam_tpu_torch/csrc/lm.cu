@@ -17,6 +17,18 @@
 // isfinite (the TPU kernel tested |v| < 3e38), and any factor count (the
 // TPU kernel needed multiples of 128).
 //
+// Time fractions (the distortion path, solver.edge_residuals with s): a
+// factor may carry its point's fraction s of the sweep as an 11th / 9th
+// channel. Its residual is taken at the pose slerped from the identity by
+// s, u = R(q_s) p + s t, and both Jacobian blocks are scaled by s (the
+// JAX solver's first-order form). The JAX package runs such factors on
+// XLA, not in its TPU kernel; here the kernel is templated on kHasS, so
+// the s-free instantiation is the kernel without the channel. The slerp
+// from the identity depends on the pose only through theta = acos(|qw|),
+// sin(theta) and the sign of qw, computed once a sweep; a factor adds two
+// sinf, a normalize and a quaternion rotation: 0.0257 ms against 0.0186
+// s-free on the same B = 16 odometry factors (PERF.md §6).
+//
 // What bounds it on an H100: latency. Each solve is 1 + n_iters sweeps
 // over a few thousand factor rows (4.1 MB for B = 16 map solves, bound
 // 0.0012 ms), and every sweep waits on the previous accept/reject. One
@@ -111,10 +123,58 @@ __device__ __forceinline__ void fold(float (&v)[32], int lane) {
   }
 }
 
+// The pose slerped from the identity by s, as geometry.slerp computes it
+// (the sign flip, |qw| clipped to 1, the LERP weights where sin(theta) <
+// 1e-6, the normalize), applied to p as geometry.qrot: rp = R(q_s) p.
+// q is the pose's quaternion with the sign of its qw folded in.
+struct Slerp {
+  float qw, qx, qy, qz, theta, sin_theta;
+  bool small;
+};
+
+__device__ __forceinline__ Slerp slerp_of(float qw, float qx, float qy,
+                                          float qz) {
+  const float sg = qw < 0.f ? -1.f : 1.f;
+  const float a = fabsf(qw);
+  Slerp sl;
+  sl.qw = sg * qw;
+  sl.qx = sg * qx;
+  sl.qy = sg * qy;
+  sl.qz = sg * qz;
+  sl.theta = acosf(a > 1.f ? 1.f : a);
+  sl.sin_theta = sinf(sl.theta);
+  sl.small = sl.sin_theta < 1e-6f;
+  return sl;
+}
+
+__device__ __forceinline__ void slerp_rotate(const Slerp& sl, float s,
+                                             float px, float py, float pz,
+                                             float* rp) {
+  const float w0 = sl.small ? 1.f - s : sinf((1.f - s) * sl.theta) /
+                                            sl.sin_theta;
+  const float w1 = sl.small ? s : sinf(s * sl.theta) / sl.sin_theta;
+  float w = w0 + w1 * sl.qw, x = w1 * sl.qx, y = w1 * sl.qy,
+        z = w1 * sl.qz;
+  const float n = clamp_min(sqrtf(w * w + x * x + y * y + z * z), 1e-12f);
+  w = w / n;
+  x = x / n;
+  y = y / n;
+  z = z / n;
+  // v + 2 (w (u x v) + u x (u x v)), u = (x, y, z)
+  const float cx = y * pz - z * py, cy = z * px - x * pz,
+              cz = x * py - y * px;
+  const float dx = y * cz - z * cy, dy = z * cx - x * cz,
+              dz = x * cy - y * cx;
+  rp[0] = px + 2.f * (w * cx + dx);
+  rp[1] = py + 2.f * (w * cy + dy);
+  rp[2] = pz + 2.f * (w * cz + dz);
+}
+
 // One sweep over this block's slice at pose (q, t): ne edge rows, channel
 // c at ef[c * ne], and np plane rows, channel c at pf[c * np], in shared
-// memory. Returns this thread's share of the block's 29 sums: thread a
-// < kAcc holds sum a.
+// memory (with kHasS the time fraction as channel 10 / 8). Returns this
+// thread's share of the block's 29 sums: thread a < kAcc holds sum a.
+template <bool kHasS>
 __device__ float sweep(const float* ef, int ne, const float* pf, int np,
                        const float* pose, float delta,
                        float (*s_red)[32]) {
@@ -130,21 +190,34 @@ __device__ float sweep(const float* ef, int ne, const float* pf, int np,
   const float r20 = 2.f * (xz - wy), r21 = 2.f * (yz + wx),
               r22 = 1.f - 2.f * (xx + yy);
   const float d2h = delta * delta;
+  Slerp sl;
+  if constexpr (kHasS) sl = slerp_of(qw, qx, qy, qz);
 
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
-  // point-to-line rows: channels [px py pz ax ay az bx by bz mask]
+  // point-to-line rows: channels [px py pz ax ay az bx by bz mask (s)]
   for (int i = threadIdx.x; i < ne; i += kThreads) {
     if (!(ef[9 * ne + i] > 0.5f)) continue;  // masked rows add exact zeros
     const float px = ef[i], py = ef[ne + i], pz = ef[2 * ne + i];
     const float ax = ef[3 * ne + i], ay = ef[4 * ne + i], az = ef[5 * ne + i];
     const float bx = ef[6 * ne + i], by = ef[7 * ne + i], bz = ef[8 * ne + i];
-    const float rp[3] = {r00 * px + r01 * py + r02 * pz,
-                         r10 * px + r11 * py + r12 * pz,
-                         r20 * px + r21 * py + r22 * pz};
-    const float ux = rp[0] + tx, uy = rp[1] + ty, uz = rp[2] + tz;
+    float rp[3], ux, uy, uz, frac = 1.f;  // frac: the time fraction s
+    if constexpr (kHasS) {
+      frac = ef[10 * ne + i];
+      slerp_rotate(sl, frac, px, py, pz, rp);
+      ux = rp[0] + frac * tx;
+      uy = rp[1] + frac * ty;
+      uz = rp[2] + frac * tz;
+    } else {
+      rp[0] = r00 * px + r01 * py + r02 * pz;
+      rp[1] = r10 * px + r11 * py + r12 * pz;
+      rp[2] = r20 * px + r21 * py + r22 * pz;
+      ux = rp[0] + tx;
+      uy = rp[1] + ty;
+      uz = rp[2] + tz;
+    }
     const float dv[3] = {ax - bx, ay - by, az - bz};
     const float inl = rsqrtf(
         clamp_min(dv[0] * dv[0] + dv[1] * dv[1] + dv[2] * dv[2], 1e-24f));
@@ -176,25 +249,44 @@ __device__ float sweep(const float* ef, int ne, const float* pf, int np,
     j[15] = dv[1] * inl;
     j[16] = -dv[0] * inl;
     j[17] = 0.f;
+    if constexpr (kHasS) {
+#pragma unroll
+      for (int k = 0; k < 18; ++k) j[k] = j[k] * frac;
+    }
     add_row(acc, j, 3, r, w);
   }
 
-  // point-to-plane rows: channels [px py pz nx ny nz d mask]
+  // point-to-plane rows: channels [px py pz nx ny nz d mask (s)]
   for (int i = threadIdx.x; i < np; i += kThreads) {
     if (!(pf[7 * np + i] > 0.5f)) continue;
     const float px = pf[i], py = pf[np + i], pz = pf[2 * np + i];
     const float nx = pf[3 * np + i], ny = pf[4 * np + i], nz = pf[5 * np + i];
     const float d = pf[6 * np + i];
-    const float rpx = r00 * px + r01 * py + r02 * pz;
-    const float rpy = r10 * px + r11 * py + r12 * pz;
-    const float rpz = r20 * px + r21 * py + r22 * pz;
-    const float r = nx * (rpx + tx) + ny * (rpy + ty) + nz * (rpz + tz) + d;
+    float rp[3], st[3] = {tx, ty, tz}, frac = 1.f;
+    if constexpr (kHasS) {
+      frac = pf[8 * np + i];
+      slerp_rotate(sl, frac, px, py, pz, rp);
+      st[0] = frac * tx;
+      st[1] = frac * ty;
+      st[2] = frac * tz;
+    } else {
+      rp[0] = r00 * px + r01 * py + r02 * pz;
+      rp[1] = r10 * px + r11 * py + r12 * pz;
+      rp[2] = r20 * px + r21 * py + r22 * pz;
+    }
+    const float rpx = rp[0], rpy = rp[1], rpz = rp[2];
+    const float r = nx * (rpx + st[0]) + ny * (rpy + st[1]) +
+                    nz * (rpz + st[2]) + d;
     float c;
     const float w = huber(r * r, delta, d2h, &c);
     acc[27] += 0.5f * c;
     acc[28] += 1.f;
-    const float j[6] = {rpy * nz - rpz * ny, rpz * nx - rpx * nz,
-                        rpx * ny - rpy * nx, nx, ny, nz};
+    float j[6] = {rpy * nz - rpz * ny, rpz * nx - rpx * nz,
+                  rpx * ny - rpy * nx, nx, ny, nz};
+    if constexpr (kHasS) {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) j[k] = j[k] * frac;
+    }
     add_row(acc, j, 1, &r, w);
   }
 
@@ -221,9 +313,10 @@ __device__ float sweep(const float* ef, int ne, const float* pf, int np,
 }
 
 // x = solve(H + lam*(diag(H) + 1e-8 I), -g) by unpivoted elimination
-// (pallas_lm._solve6). h21 is the row-major upper triangle.
-__device__ void solve6(const float* h21, const float* g, float lam,
-                       float* x) {
+// (pallas_lm._solve6). h21 is the row-major upper triangle. Inlined into
+// each instantiation of lm_kernel.
+__device__ __forceinline__ void solve6(const float* h21, const float* g,
+                                       float lam, float* x) {
   float a[6][6], rhs[6];
   int idx = 0;
   for (int i = 0; i < 6; ++i) {
@@ -269,6 +362,7 @@ __device__ __forceinline__ void slice_of(int n, int c, int rank, int* start,
   *count = min(n - *start, per);
 }
 
+template <bool kHasS>
 __global__ void __launch_bounds__(kThreads)
     lm_kernel(const float* __restrict__ ef, const float* __restrict__ pf,
               const float* __restrict__ pose_in, float* __restrict__ out,
@@ -290,17 +384,18 @@ __global__ void __launch_bounds__(kThreads)
 
   // copy the slice once, every element in flight at once (4-byte
   // cp.async): edge channels, then plane channels
+  constexpr int kEc = kHasS ? 11 : 10, kPc = kHasS ? 9 : 8;
   int e0, me, q0, mp;
   slice_of(ne, csize, rank, &e0, &me);
   slice_of(np, csize, rank, &q0, &mp);
   float* se = s_fac;
-  float* sp = s_fac + 10 * me;
-  const float* eg = ef + (size_t)b * 10 * ne + e0;
-  for (int c = 0; c < 10; ++c)
+  float* sp = s_fac + kEc * me;
+  const float* eg = ef + (size_t)b * kEc * ne + e0;
+  for (int c = 0; c < kEc; ++c)
     for (int t = threadIdx.x; t < me; t += kThreads)
       copy4(se + c * me + t, eg + (size_t)c * ne + t);
-  const float* pg = pf + (size_t)b * 8 * np + q0;
-  for (int c = 0; c < 8; ++c)
+  const float* pg = pf + (size_t)b * kPc * np + q0;
+  for (int c = 0; c < kPc; ++c)
     for (int t = threadIdx.x; t < mp; t += kThreads)
       copy4(sp + c * mp + t, pg + (size_t)c * np + t);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -318,7 +413,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 7; ++i) pose[i] = p0[i];
 
   for (int it = 0; it <= n_iters; ++it) {
-    const float v = sweep(se, me, sp, mp, s_pose, delta, s_red);
+    const float v = sweep<kHasS>(se, me, sp, mp, s_pose, delta, s_red);
     if (it == 0)  // every block of the cluster is running
       asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
     if (threadIdx.x < kAcc)
@@ -399,28 +494,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-// ef (bsz, 10, ne) f32, pf (bsz, 8, np) f32, pose (bsz, 8) f32
-// [qw qx qy qz tx ty tz 0], out (bsz, 12) f32 [q(4) t(3) cost0 cost
-// n_factors clamped nonfinite]; all contiguous. One cluster of `cluster`
-// blocks (1..8) per stream. Returns the cudaError_t of the launch (a
-// refused cluster or shared-memory request included).
-extern "C" int aloam_lm_solve(const float* ef, const float* pf,
-                              const float* pose, float* out, int bsz, int ne,
-                              int np, int n_iters, float delta, float lam0,
-                              int cluster, void* stream) {
-  if (bsz <= 0) return 0;
-  if (cluster < 1 || cluster > kMaxCluster || ne < 0 || np < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+// One launch of one instantiation; each keeps its own grant of dynamic
+// shared memory past 48 KB, which must be asked for per kernel function.
+template <bool kHasS>
+int launch(const float* ef, const float* pf, const float* pose, float* out,
+           int bsz, int ne, int np, int n_iters, float delta, float lam0,
+           int cluster, cudaStream_t stream) {
   const int per_e = (ne + cluster - 1) / cluster;
   const int per_p = (np + cluster - 1) / cluster;
-  const size_t smem = (10 * (size_t)per_e + 8 * (size_t)per_p) * sizeof(float);
-  // dynamic shared memory past 48 KB must be asked for first
+  const size_t smem = ((kHasS ? 11 : 10) * (size_t)per_e +
+                       (kHasS ? 9 : 8) * (size_t)per_p) *
+                      sizeof(float);
   static size_t granted = 48 * 1024;
   if (smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lm_kernel<kHasS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = smem;
@@ -429,7 +517,7 @@ extern "C" int aloam_lm_solve(const float* ef, const float* pf,
   cfg.gridDim = dim3(bsz * cluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
@@ -437,9 +525,31 @@ extern "C" int aloam_lm_solve(const float* ef, const float* pf,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, lm_kernel, ef, pf, pose,
-                                             out, ne, np, n_iters, delta,
-                                             lam0);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, lm_kernel<kHasS>, ef, pf, pose, out, ne, np, n_iters, delta,
+      lam0);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// ef (bsz, 10, ne) f32, pf (bsz, 8, np) f32 (with has_s: (bsz, 11, ne) and
+// (bsz, 9, np), the time fractions last), pose (bsz, 8) f32
+// [qw qx qy qz tx ty tz 0], out (bsz, 12) f32 [q(4) t(3) cost0 cost
+// n_factors clamped nonfinite]; all contiguous. One cluster of `cluster`
+// blocks (1..8) per stream. Returns the cudaError_t of the launch (a
+// refused cluster or shared-memory request included).
+extern "C" int aloam_lm_solve(const float* ef, const float* pf,
+                              const float* pose, float* out, int bsz, int ne,
+                              int np, int n_iters, float delta, float lam0,
+                              int cluster, int has_s, void* stream) {
+  if (bsz <= 0) return 0;
+  if (cluster < 1 || cluster > kMaxCluster || ne < 0 || np < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return has_s ? launch<true>(ef, pf, pose, out, bsz, ne, np, n_iters,
+                              delta, lam0, cluster, st)
+               : launch<false>(ef, pf, pose, out, bsz, ne, np, n_iters,
+                               delta, lam0, cluster, st);
 }

@@ -74,6 +74,24 @@ def retract(q: torch.Tensor, dtheta: torch.Tensor) -> torch.Tensor:
     return qnormalize(qmul(exp_so3(dtheta), q))
 
 
+def slerp(q0: torch.Tensor, q1: torch.Tensor, s) -> torch.Tensor:
+    """Spherical interpolation from q0 to q1 by fraction s ∈ [0, 1] (s
+    broadcasts against the quaternions' leading dims). Eigen's
+    ``Quaterniond::slerp`` (laserOdometry.cpp:120, lidarFactor.hpp:29): the
+    shortest-path sign flip and the small-angle LERP fallback."""
+    s = torch.as_tensor(s, dtype=q0.dtype, device=q0.device)[..., None]
+    dot = (q0 * q1).sum(dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = dot.abs().clamp(-1.0, 1.0)
+    theta = torch.acos(dot)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    safe = torch.where(small, 1.0, sin_theta)
+    w0 = torch.where(small, 1.0 - s, torch.sin((1.0 - s) * theta) / safe)
+    w1 = torch.where(small, s, torch.sin(s * theta) / safe)
+    return qnormalize(w0 * q0 + w1 * q1)
+
+
 def compose(q_a: torch.Tensor, t_a: torch.Tensor,
             q_b: torch.Tensor, t_b: torch.Tensor):
     """SE(3) composition (q_a,t_a) ∘ (q_b,t_b): first apply b, then a

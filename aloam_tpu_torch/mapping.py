@@ -416,8 +416,9 @@ def mapping_step_b(state: MapState, corner_in: PointCloud,
 
 
 def _batch1(factors):
-    """Unbatched factors -> the B = 1 factors lm_solve_b takes."""
-    return type(factors)(*(x[None] for x in factors))
+    """Unbatched factors -> the B = 1 factors lm_solve_b takes (mapping's
+    carry no time fractions: s stays None)."""
+    return type(factors)(*(None if x is None else x[None] for x in factors))
 
 
 def mapping_step(state: MapState, corner_in: PointCloud,

@@ -42,7 +42,7 @@ SIGNATURES = {
                            _P),
     "aloam_odom_window": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _I, _I, _I,
                                       _P),
-    "aloam_lm_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P),
+    "aloam_lm_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     "aloam_assoc_cell": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                          _F, _P),
     "aloam_merge_rows": (_P,) * 12 + (_I,) * 5 + (_F, _F, _P),

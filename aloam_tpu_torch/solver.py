@@ -1,5 +1,5 @@
 """Batched Levenberg-Marquardt on SE(3) with analytic LOAM Jacobians
-(port of ``aloam_tpu/solver.py``, the ``s = None`` path only).
+(port of ``aloam_tpu/solver.py``).
 
 The reference solves each stage with Ceres (``AutoDiffCostFunction`` +
 Huber(0.1) + an ``EigenQuaternionParameterization``,
@@ -10,8 +10,15 @@ axis, the robust loss enters as IRLS weights, and each iteration is one
 damped 6x6 solve per stream. The tangent is ``[dtheta, dt]``:
 ``q' = exp(dtheta) ⊗ q``, ``t' = t + dt``.
 
+``s = None`` (no per-point interpolation) is the reference's compiled
+``DISTORTION 0`` path (laserOdometry.cpp:59; mapping always passes 1.0,
+laserMapping.cpp:618). Factors carrying per-point time fractions ``s``
+are the ``DISTORTION 1`` path: slerp-interpolated residuals
+(lidarFactor.hpp:26-33) with first-order s-scaled Jacobians.
+
 ``lm_solve`` is the plain batched form; ``lm_solve_b`` packs the factors
-and runs the one-launch kernel of ``ops/lm.py``.
+(with an ``s`` channel when they carry one) and runs the one-launch
+kernel of ``ops/lm.py``.
 """
 
 from __future__ import annotations
@@ -26,20 +33,24 @@ from aloam_tpu_torch.ops import lm as lm_op
 
 class EdgeFactors(NamedTuple):
     """Point-to-line (LidarEdgeFactor, lidarFactor.hpp:12-55): residual
-    (3,) = (u−a)×(u−b)/‖a−b‖ with u = q·p + t. Leaves (B, N, 3) / (B, N)."""
+    (3,) = (u−a)×(u−b)/‖a−b‖ with u = q_s·p + s·t, where q_s interpolates
+    identity→q by the per-point time fraction s (lidarFactor.hpp:26-33);
+    s = None is s ≡ 1, u = q·p + t. Leaves (B, N, 3) / (B, N)."""
     p: torch.Tensor
     a: torch.Tensor
     b: torch.Tensor
     mask: torch.Tensor
+    s: torch.Tensor | None = None
 
 
 class PlaneFactors(NamedTuple):
     """Point-to-plane (LidarPlaneNormFactor, lidarFactor.hpp:106-138):
-    residual (1,) = n·(q·p + t) + d. Leaves (B, N, 3) / (B, N)."""
+    residual (1,) = n·(q_s·p + s·t) + d. Leaves (B, N, 3) / (B, N)."""
     p: torch.Tensor
     n: torch.Tensor
     d: torch.Tensor
     mask: torch.Tensor
+    s: torch.Tensor | None = None
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -49,10 +60,32 @@ def _skew(v: torch.Tensor) -> torch.Tensor:
                        dim=-1).reshape(v.shape[:-1] + (3, 3))
 
 
+def _interp_pose(q, t, s):
+    """Per-point pose interpolation identity→(q, t) by fraction s (B, N):
+    slerp on the quaternion (Eigen's slerp, lidarFactor.hpp:29) and linear
+    scaling of the translation (:30). Returns (B, N, 4), (B, N, 3)."""
+    b, n = s.shape
+    qs = geo.slerp(geo.qidentity(q.device).expand(b, n, 4),
+                   q[:, None, :].expand(b, n, 4), s)
+    return qs, s[..., None] * t[:, None, :]
+
+
+def _moved(f, q, t):
+    """(u, R p, Jacobian scale) of a factor batch's points at (q, t): with
+    time fractions the exact interpolated pose, and the first-order
+    s-scaled Jacobian d(exp(s·log(exp(δ)q)))/dδ ≈ s·(…), which matches
+    autodiff to O(s(1-s)·|δθ|²)."""
+    if f.s is None:
+        u = geo.qrot(q[:, None], f.p) + t[:, None]
+        return u, u - t[:, None], None
+    qs, ts = _interp_pose(q, t, f.s)
+    rp = geo.qrot(qs, f.p)
+    return rp + ts, rp, f.s
+
+
 def edge_residuals(f: EdgeFactors, q, t):
     """Residual (B, N, 3) and Jacobian (B, N, 3, 6) at (q (B,4), t (B,3))."""
-    u = geo.qrot(q[:, None], f.p) + t[:, None]
-    rp = u - t[:, None]                                    # = R p
+    u, rp, j_scale = _moved(f, q, t)                       # rp = R p
     dv = f.a - f.b
     inv_norm = 1.0 / torch.linalg.vector_norm(
         dv, dim=-1, keepdim=True).clamp_min(1e-12)
@@ -63,16 +96,22 @@ def edge_residuals(f: EdgeFactors, q, t):
     j_theta = (rp[..., :, None] * dv[..., None, :]
                - (dv * rp).sum(-1)[..., None, None] * eye) \
         * inv_norm[..., None]
+    if j_scale is not None:
+        j_theta = j_theta * j_scale[..., None, None]
+        j_u = j_u * j_scale[..., None, None]
     return r, torch.cat([j_theta, j_u], dim=-1)
 
 
 def plane_residuals(f: PlaneFactors, q, t):
     """Residual (B, N, 1) and Jacobian (B, N, 1, 6)."""
-    u = geo.qrot(q[:, None], f.p) + t[:, None]
-    rp = u - t[:, None]
+    u, rp, j_scale = _moved(f, q, t)
     r = ((f.n * u).sum(-1) + f.d)[..., None]
     j_theta = torch.linalg.cross(rp, f.n, dim=-1)          # (Rp × n)^T
-    return r, torch.cat([j_theta, f.n], dim=-1)[..., None, :]
+    j_n = f.n
+    if j_scale is not None:
+        j_theta = j_theta * j_scale[..., None]
+        j_n = j_n * j_scale[..., None]
+    return r, torch.cat([j_theta, j_n], dim=-1)[..., None, :]
 
 
 _RESIDUAL_FNS = {EdgeFactors: edge_residuals, PlaneFactors: plane_residuals}
@@ -186,7 +225,8 @@ def lm_solve_b(edges: EdgeFactors, planes: PlaneFactors, q0, t0,
                n_iters: int, huber_delta: float = 0.1,
                lambda0: float = 1e-4):
     """``lm_solve`` over one edge and one plane factor batch (the shape
-    both pipeline stages use) as one kernel launch (ops/lm.py)."""
+    both pipeline stages use) as one kernel launch (ops/lm.py); factors
+    with time fractions carry them as a last channel."""
     pose = torch.cat([q0, t0, torch.zeros_like(t0[:, :1])], dim=1)
     out = lm_op.lm_fused(lm_op.pack_edge_channels(edges),
                          lm_op.pack_plane_channels(planes),
