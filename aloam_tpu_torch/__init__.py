@@ -18,7 +18,10 @@ Ported so far: the whole batched step (``pipeline.step_b``: scan
 registration, feature extraction, scan-to-scan odometry and scan-to-map
 mapping on the persistent voxel-hash map), the single-stream step with the
 reference's exact per-round map search (``pipeline.step``), its
-checkpoints (``utils/checkpoint.py``) and the CLI (``cli.py``).
+checkpoints (``utils/checkpoint.py``), the CLI (``cli.py``), and the
+scaling over ``torch.distributed`` ranks (``parallel``: streams split
+over the ranks, the sharded neighbour search, the runtime and the
+multi-rank dry run).
 """
 
 from aloam_tpu_torch.config import AloamConfig, PRESETS  # noqa: F401

@@ -97,7 +97,21 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    every stream, and every stream's aligned mapped ATE against the
    sweep-end ground truth must stay under its limit (0.12 m on the one
    stream, 0.15 m on each of the B: ``DIST_ATE_LIMIT_1`` / ``_B``); the
-   gates of tests/test_pipeline.py's distortion tests.
+   gates of tests/test_pipeline.py's distortion tests;
+11. parallel: ``aloam_tpu_torch.parallel`` over ``torch.distributed``.
+   (a) One NCCL rank, a (1, 1) mesh: ``batched_step_fn`` over phase 6's
+   16 streams and 8 frames bit-equal to phase 6's kernel run (poses and
+   metrics) with its launches, and ``sharded_knn`` equal to the dense
+   ``neighbors.knn`` (d2 and indices) at Q = 4096, M = 36864 on phase
+   6's map points. (b) Two ranks on the one card over gloo (NCCL refuses
+   two ranks on one GPU; gloo takes the CUDA tensors): two worker
+   processes (this script with ``--parallel-worker``, each with a time
+   limit) step 8 streams each over a (2, 1) mesh with the kernels, their
+   poses held against phase 6's at ``pose_agreement``'s tolerance (8
+   streams get another ``lm_fused`` cluster plan than 16), each rank's
+   scans/s and device busy time under torch.profiler beside the one
+   process's; then ``sharded_knn`` over a (1, 2) mesh equal to the dense
+   knn, with the gloo exchange timed.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on the main path, worst error, kernel ms back to back, device
@@ -157,6 +171,10 @@ DIST_SPEED, DIST_ACCEL, DIST_YAW_RATE = 6.0, 12.0, 0.3
 # (0.12 m over the 0.1116 m it scores there over its 7 frames), rounded up
 # to the centimetre
 DIST_ATE_LIMIT_1, DIST_ATE_LIMIT_B = 0.12, 0.15
+# phase 11: sharded_knn's shapes (the surf stack's width of refs) and
+# the time limit of its two worker processes
+KNN_Q, KNN_M = 4096, 36864
+WORKER_TIMEOUT_S = 420
 DIST_CACHE = os.path.join(
     CACHE_DIR, f"chip_smoke_dist_hdl64_a{N_AZIMUTH}_b{B}_f{N_FRAMES}.npz")
 DIST_SINGLE_CACHE = os.path.join(
@@ -1302,6 +1320,8 @@ def stage_busy(step, stages, pipeline, cfg, frames, device, batch):
 
 
 def say_busy(tag, stages, pipeline, cfg, frames, device, batch, card):
+    """Print the profiled device busy time by stage and by operation;
+    returns the busy ms per frame."""
     per_stage, busy, wall, kernels, per_op = stage_busy(
         pipeline.step_b if batch > 1 else pipeline.step, stages, pipeline,
         cfg, frames, device, batch)
@@ -1314,6 +1334,7 @@ def say_busy(tag, stages, pipeline, cfg, frames, device, batch, card):
         f"operations per frame ({card})")
     say(f"[{tag}] device ms per frame by operation, the ten largest: "
         + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
+    return busy
 
 
 def say_stages(tag, per_frame, card):
@@ -1323,10 +1344,12 @@ def say_stages(tag, per_frame, card):
         + ", ".join(f"{k} {v:.3f}" for k, v in med.items()) + f" ({card})")
 
 
-def pose_agreement(tag, k_outs, p_outs, k_ms, p_ms, batch):
-    """Map poses of a kernel run and a plain run, frame by frame: within
-    1e-3 (q) / 5e-3 m (t) unless a gate flipped in that stream (from then
-    on), and within 2.5e-2 always."""
+def pose_agreement(tag, k_outs, p_outs, k_ms, p_ms, batch,
+                   labels=("kernel", "plain")):
+    """Map poses of a kernel run and a plain run (or the two runs
+    ``labels`` names), frame by frame: within 1e-3 (q) / 5e-3 m (t)
+    unless a gate flipped in that stream (from then on), and within
+    2.5e-2 always."""
     from aloam_tpu_torch.pipeline import METRIC_NAMES
     col = {n: i for i, n in enumerate(METRIC_NAMES)}
     gates = ("corner_corr", "plane_corr", "map_corner_factors",
@@ -1346,8 +1369,9 @@ def pose_agreement(tag, k_outs, p_outs, k_ms, p_ms, batch):
             flipped |= km[:, col[g]] != pm[:, col[g]]
         dq = np.abs(np.reshape(ko["q_map"] - po["q_map"], (batch, -1))).max(1)
         dt = np.abs(np.reshape(ko["t_map"] - po["t_map"], (batch, -1))).max(1)
-        say(f"[{tag}] frame {f}: kernel {k_ms[f]:.1f} ms plain {p_ms[f]:.1f} "
-            f"ms; map max |dq| {dq.max():.3g} max |dt| {dt.max():.3g} m; "
+        say(f"[{tag}] frame {f}: {labels[0]} {k_ms[f]:.1f} ms {labels[1]} "
+            f"{p_ms[f]:.1f} ms; map max |dq| {dq.max():.3g} max |dt| "
+            f"{dt.max():.3g} m; "
             f"gate flips in streams {np.flatnonzero(flipped).tolist()}")
         # with a flip, the bound JAX holds its own batched and single
         # mapping paths to (tests/test_batched_kernels.py)
@@ -1403,7 +1427,8 @@ def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
 
 def run_step(pipeline, mods, cfg, frames, gt, device, card):
     """Phase 6: step_b with the kernels, with the plain versions, and a
-    staged kernel run. Returns (launches, the kernel run's final state)."""
+    staged kernel run. Returns (launches, the kernel run's final state,
+    its per-frame outputs and host ms, the device busy ms per frame)."""
     from aloam_tpu_torch.pipeline import METRIC_NAMES
 
     k_outs, k_ms, p_outs, p_ms, launches, st, peak = kernel_and_plain(
@@ -1418,7 +1443,7 @@ def run_step(pipeline, mods, cfg, frames, gt, device, card):
 
     say_stages("step", stage_times(pipeline.step_b, STAGES, pipeline, cfg,
                                    frames, device, B), card)
-    say_busy("step", STAGES, pipeline, cfg, frames, device, B, card)
+    busy = say_busy("step", STAGES, pipeline, cfg, frames, device, B, card)
 
     col = {n: i for i, n in enumerate(METRIC_NAMES)}
     last = k_outs[-1]["metrics"]
@@ -1427,7 +1452,7 @@ def run_step(pipeline, mods, cfg, frames, gt, device, card):
     if not last[:, col["map_solved"]].all():
         fail("mapping did not solve in every stream")
     ate_check("step", k_outs, gt, B)
-    return launches, st
+    return launches, st, k_outs, k_ms, busy
 
 
 def run_single(pipeline, mods, cfg, frames, gt, device, card):
@@ -1636,6 +1661,354 @@ def run_distortion(pipeline, mods, cfg_b, cfg_1, device, results, card):
         distortion_gates(tag, k_outs, r_outs, truth, batch, ate_limit)
     return launches["dist_step"]
 
+def knn_points(map_state, cfg):
+    """(queries (KNN_Q, 3), refs (KNN_M, 3), ref mask (KNN_M,), the number
+    of real refs) from phase 6's map: the queries are stream 0's corner
+    map points, the refs the surf map points of streams 0, 1, ... in
+    turn, up to KNN_M (each stream's map lies in its own world frame,
+    all starting at the origin, so they overlap as one denser cloud);
+    masked rows pad too few points, repeats too few queries."""
+    from aloam_tpu_torch.mapping import extract_map_cloud
+    corner, surf = extract_map_cloud(map_state, cfg)
+    pts = np.concatenate(surf)[:KNN_M]
+    refs = np.zeros((KNN_M, 3), np.float32)
+    mask = np.zeros(KNN_M, bool)
+    refs[:len(pts)], mask[:len(pts)] = pts, True
+    q = np.resize(corner[0].astype(np.float32), (KNN_Q, 3))
+    return q, refs, mask, len(pts)
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Mean host milliseconds of ``fn`` (synchronized) over ``reps`` calls
+    after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def check_sharded_knn(tag, mesh, q, refs, mask):
+    """sharded_knn over ``mesh``'s model group against the dense
+    ``neighbors.knn`` on the whole refs (``parallel.dryrun``'s check: d2
+    and indices equal). Returns (sharded ms, dense ms)."""
+    from aloam_tpu_torch.neighbors import knn
+    from aloam_tpu_torch.parallel import dryrun, model_shard, sharded_knn
+    try:
+        dryrun.check_sharded_knn(mesh, q, refs, mask)
+    except RuntimeError as e:
+        fail(f"{tag}: {e}")
+    f = sharded_knn(mesh, k=5)
+    r_loc, m_loc = model_shard(refs, mesh), model_shard(mask, mesh)
+    return host_ms(lambda: f(q, r_loc, m_loc)), \
+        host_ms(lambda: knn(q, refs, mask, 5))
+
+
+POSE_KEYS = ("q_odom", "t_odom", "q_map", "t_map", "metrics")
+
+
+def run_parallel(pipeline, mods, cfg, frames, outs_b, ms_b, busy_b,
+                 launches_b, knn_pts, device, card):
+    """Phase 11: the sharded step and the model-axis kNN.
+
+    (a) One rank, NCCL, a (1, 1) mesh: ``batched_step_fn`` over phase 6's
+    16 streams and 8 frames must give phase 6's kernel run bit for bit
+    (poses and metrics) with the same launches; ``sharded_knn`` equal to
+    the dense ``knn`` at Q = 4096, M = 36864 on phase 6's map points.
+    (b) Two ranks on the one card over gloo (NCCL refuses two ranks on
+    one GPU): two worker processes (``parallel_worker``) step 8 streams
+    each over a (2, 1) mesh. Each rank's outputs must equal
+    ``pipeline.step_b`` on its own 8 streams bit for bit, and rank 0 holds
+    its kernels, at the inputs frame 1 gives them, against their plain
+    versions and a second launch; the poses are held against phase 6's
+    at ``pose_agreement``'s tolerance (a batch of 8 is not a batch of
+    16); with the batch-dependent launch plans forced to B = 16's they
+    must equal phase 6 bit for bit (and with lm_fused's alone, printed,
+    they do not). Then ``sharded_knn`` over a (1, 2)
+    mesh, equal to the dense knn. A worker that exits non-zero or
+    outlives its time limit fails the run."""
+    import torch
+    import torch.distributed as dist
+    from aloam_tpu_torch.parallel import batched_step_fn, distributed, make_mesh
+
+    q, refs, mask, n_refs = knn_pts
+    say(f"[parallel] kNN points from the [step] map: {KNN_Q} queries "
+        f"(stream 0's corner map), {n_refs} of {KNN_M} refs real (the surf "
+        f"maps of streams 0, 1, ...)")
+    # (a) a world of one NCCL rank
+    distributed.initialize(
+        init_method=f"tcp://127.0.0.1:{distributed.free_port()}",
+        world_size=1, rank=0, backend="nccl")
+    try:
+        mesh = make_mesh(1, 1, "cuda")
+        f = batched_step_fn(cfg, mesh)
+        reset_counts(mods)
+        outs, ms, st = run_frames(lambda s, x, m, c: f(s, x, m), pipeline,
+                                  cfg, frames, device)
+        del st
+        got = {n: launch_count(mods, n) for n in STEP_KERNELS}
+        if got != {n: launches_b[n] for n in STEP_KERNELS}:
+            fail(f"[parallel] launches {got}, phase 6's "
+                 f"{ {n: launches_b[n] for n in STEP_KERNELS} }")
+        for fr, (a, b) in enumerate(zip(outs, outs_b)):
+            for k in POSE_KEYS:
+                if not np.array_equal(a[k], b[k]):
+                    fail(f"[parallel] one rank: frame {fr} {k} differs from "
+                         f"phase 6 by {np.abs(a[k] - b[k]).max():.3g}")
+        say(f"[parallel] one NCCL rank, mesh (1, 1): batched_step_fn over "
+            f"{B} streams x {len(frames)} frames bit-equal to [step] (poses "
+            f"and metrics), launches {got}; {np.mean(ms[1:]):.2f} ms/frame "
+            f"= {B * 1e3 / np.mean(ms[1:]):.1f} scans/s ({card})")
+        tq, tr, tm = (torch.from_numpy(a).to(device) for a in (q, refs, mask))
+        sk, dk = check_sharded_knn("[parallel] one rank", mesh, tq, tr, tm)
+        say(f"[parallel] one NCCL rank: sharded_knn (Q={KNN_Q}, M={KNN_M}, "
+            f"k=5) equal to the dense knn; {sk:.3f} ms, dense {dk:.3f} ms "
+            f"({card})")
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two gloo ranks sharing the card
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "knn.npz"), q=q, refs=refs, mask=mask)
+        with open(os.path.join(tmp, "card.txt"), "w") as fh:
+            fh.write(card)
+        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+        try:
+            outs = distributed.spawn(
+                [sys.executable, os.path.abspath(__file__),
+                 "--parallel-worker", tmp], 2, env, WORKER_TIMEOUT_S)
+        except RuntimeError as e:
+            fail(f"[parallel] worker {e}")
+        for out in outs:
+            for line in out.splitlines():
+                say(line)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                info = json.load(fh)
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+                info["outs"] = dict(z)
+            ranks.append(info)
+
+    def joined(run):
+        return [{k: np.concatenate([rk["outs"][f"{run}.{k}_{fr}"]
+                                    for rk in ranks]) for k in POSE_KEYS}
+                for fr in range(len(frames))]
+    pose_agreement("parallel", joined("sharded"), outs_b, ranks[0]["ms"],
+                   ms_b, B, ("rank 0", "[step]"))
+    # what moves a rank's 8 streams off the same streams in a batch of 16:
+    # the launch plans that depend on the batch. With all of them forced
+    # to B = 16's the streams must equal [step] bit for bit; lm_fused's
+    # alone does not suffice (the scan's E changes with its row count)
+    for run, what in (("lm16", "lm_fused's cluster plan"),
+                      ("plans16", "the lm_fused, segmented_prefix_sums and "
+                                  "window_mins launch plans")):
+        got = joined(run)
+        diff = [(fr, k, float(np.abs(got[fr][k] - outs_b[fr][k]).max()))
+                for fr in range(len(frames)) for k in POSE_KEYS
+                if not np.array_equal(got[fr][k], outs_b[fr][k])]
+        line = (f"step_b on each rank's {B // 2} streams with {what} at "
+                f"B={B}'s: " + (
+                    f"bit-equal to [step] over {len(frames)} frames (poses "
+                    f"and metrics)" if not diff else
+                    f"differs from [step] from frame {diff[0][0]} "
+                    f"({diff[0][1]} by {diff[0][2]:.3g}), max |diff| "
+                    f"{max(d for *_, d in diff):.3g}"))
+        if run == "plans16" and diff:
+            fail(f"[parallel] {line}")
+        say(f"[parallel] {line}")
+    one = B * 1e3 / float(np.mean(ms_b[1:]))
+    ms = [float(np.mean(rk["ms"][1:])) for rk in ranks]
+    sps = [rk["local"] * 1e3 / m for rk, m in zip(ranks, ms)]
+    busy = sum(rk["busy_ms"] for rk in ranks)
+    for r, rk in enumerate(ranks):
+        say(f"[parallel] rank {r} (streams {rk['offset']}-"
+            f"{rk['offset'] + rk['local'] - 1}): {sps[r]:.1f} scans/s "
+            f"({ms[r]:.2f} ms/frame over frames 1-{len(frames) - 1}), peak "
+            f"device memory {rk['peak'] / 2 ** 30:.3f} GiB, launches "
+            f"{rk['launches']}; its own device busy {rk['busy_ms']:.3f} ms "
+            f"per frame under torch.profiler, which stretches its frame to "
+            f"{rk['wall_ms']:.2f} ms (idle {100 * (1 - rk['busy_ms'] / ms[r]):.1f}% "
+            f"of the {ms[r]:.2f} ms frame without it), {rk['ops']:.0f} device "
+            f"operations per frame ({card})")
+    say(f"[parallel] two gloo ranks on one card: {sum(sps):.1f} scans/s "
+        f"together against {one:.1f} for one process at B={B} ([step]), "
+        f"{sum(sps) / one:.3f}x; the card idle about "
+        f"{100 * (1 - busy / max(ms)):.1f}% of the longer frame without the "
+        f"profiler (both ranks' busy {busy:.3f} ms in {max(ms):.2f} ms) "
+        f"against about {100 * (1 - busy_b / float(np.mean(ms_b[1:]))):.1f}% "
+        f"for one process ({busy_b:.3f} ms in "
+        f"{float(np.mean(ms_b[1:])):.2f} ms) ({card})")
+    say(f"[parallel] two gloo ranks: sharded_knn over a (1, 2) mesh equal "
+        f"to the dense knn; {ranks[0]['knn_ms']:.3f} ms a call, the local "
+        f"search on {KNN_M // 2} refs {ranks[0]['local_knn_ms']:.3f} ms, the "
+        f"gloo exchange (two all_gathers of ({KNN_Q}, 5) CUDA tensors) "
+        f"{ranks[0]['exchange_ms']:.3f} ms; the dense knn on {KNN_M} refs "
+        f"{ranks[0]['dense_ms']:.3f} ms ({card})")
+
+
+def check_repeatable(mods, recorded, tag):
+    """Each recorded input through its kernel twice: the outputs must be
+    equal bit for bit (no kernel uses atomics)."""
+    import torch
+
+    def bits(t):
+        return t.contiguous().view(torch.uint8) if torch.is_tensor(t) else t
+    for (name, _), (args, kw) in recorded.items():
+        kern = getattr(mods[name], KERNELS[name][1])
+        a, b = (run_kernel(name, kern, args, kw) for _ in range(2))
+        a, b = ((x,) if torch.is_tensor(x) else tuple(x) for x in (a, b))
+        if not all(torch.equal(bits(x), bits(y)) if torch.is_tensor(x)
+                   else x == y for x, y in zip(a, b)):
+            fail(f"{tag}: two launches of {name} on the same inputs differ")
+
+
+def scaled_plan(plan, scale: int):
+    """A launch plan taking the plan of a batch ``scale`` times larger."""
+    def f(rows, *args):
+        return plan(rows * scale, *args)
+    return f
+
+
+def parallel_worker(tmp: str) -> None:
+    """One rank of phase 11 (b), run as ``chip_smoke.py --parallel-worker
+    <dir>`` with MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK set: this
+    rank's 8 streams of the bench scene over a (2, 1) mesh with the
+    kernels (8 frames, host ms per frame), the same frames through
+    ``pipeline.step_b`` in this process (bit-equal), twice more with the
+    batch-dependent launch plans at B = 16's, a torch.profiler run for
+    its device busy time; rank 0 holds frame 1's kernel inputs against
+    the plain versions and two launches; then sharded_knn over a (1, 2)
+    mesh on phase 6's map points. Writes rank<r>.json and rank<r>.npz to
+    ``dir``."""
+    import torch
+    import torch.distributed as dist
+    from aloam_tpu_torch import pipeline
+    from aloam_tpu_torch.neighbors import knn
+    from aloam_tpu_torch.parallel import (batched_step_fn, distributed,
+                                          gather_outputs, make_mesh,
+                                          model_shard)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(backend="gloo")
+    size, rank = distributed.world()
+    device = torch.device(
+        "cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    with open(os.path.join(tmp, "card.txt")) as fh:
+        card = fh.read()
+    try:
+        mods = {name: importlib.import_module(f"aloam_tpu_torch.ops.{spec[0]}")
+                for name, spec in KERNELS.items()}
+        cfg = bench_cfg()
+        xyz, mask, _ = make_streams(cfg)
+        local, off = distributed.process_local_batch(B)
+        frames = [(torch.from_numpy(xyz[f, off:off + local]).to(device),
+                   torch.from_numpy(mask[f, off:off + local]).to(device))
+                  for f in range(N_FRAMES)]
+        del xyz, mask
+        mesh = make_mesh(size, 1, "cuda")
+        f = batched_step_fn(cfg, mesh)
+        reset_counts(mods)
+        torch.cuda.reset_peak_memory_stats(device)
+        dist.barrier()
+        st = pipeline.init_state(cfg, local, device)
+        ms, arrays = [], {}
+        for fr, (x, m) in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, out = f(st, x, m)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for k in POSE_KEYS:
+                arrays[f"sharded.{k}_{fr}"] = getattr(out, k).cpu().numpy()
+        peak = torch.cuda.max_memory_allocated(device)
+        launches = {n: launch_count(mods, n) for n in STEP_KERNELS}
+        if min(launches.values()) < 1:
+            fail(f"[parallel] rank {rank}: a kernel was never launched: "
+                 f"{launches}")
+        # the data group's outputs in global stream order
+        g = gather_outputs(out, mesh)
+        if not torch.equal(g.t_map[off:off + local], out.t_map) \
+                or g.t_map.shape[0] != B:
+            fail(f"[parallel] rank {rank}: gather_outputs misplaces streams")
+        del st
+
+        # the sharded step is step_b on the rank's streams, bit for bit
+        scale = B // local
+        for run, swaps in (
+                ("step_b", []),
+                ("lm16", [(mods["lm_fused"], "launch_plan",
+                           scaled_plan(mods["lm_fused"].launch_plan, scale))]),
+                ("plans16", [(mods[n], "launch_plan",
+                              scaled_plan(mods[n].launch_plan, scale))
+                             for n in ("lm_fused", "segmented_prefix_sums",
+                                       "window_mins")])):
+            with Patched(swaps):
+                outs = run_frames(pipeline.step_b, pipeline, cfg, frames,
+                                  device, local)[0]
+            for fr, o in enumerate(outs):
+                for k in POSE_KEYS:
+                    arrays[f"{run}.{k}_{fr}"] = o[k]
+                    if run == "step_b" and not np.array_equal(
+                            o[k], arrays[f"sharded.{k}_{fr}"]):
+                        fail(f"[parallel] rank {rank}: batched_step_fn "
+                             f"differs from step_b on the same streams at "
+                             f"frame {fr} ({k})")
+        dist.barrier()
+        _, busy, wall, ops, _ = stage_busy(
+            lambda s, x, m, c: f(s, x, m), {}, pipeline, cfg, frames, device,
+            local)
+        dist.barrier()
+        # rank 0: the kernels at the inputs frame 1 of the sharded step
+        # gives them, against their plain versions and a second launch
+        if rank == 0:
+            st = pipeline.init_state(cfg, local, device)
+            st, _ = f(st, *frames[0])
+            recorded = record_inputs(mods, STEP_KERNELS,
+                                     lambda: f(st, *frames[1]))
+            del st
+            check_recorded(mods, recorded, {}, card)
+            check_repeatable(mods, recorded, "[parallel] rank 0")
+            say(f"[parallel] rank 0: {len(recorded)} kernel inputs of the "
+                f"sharded step's frame 1 ({local} streams) agree with the "
+                f"plain versions; two launches on each bit-equal")
+
+        kmesh = make_mesh(1, size, "cuda")
+        with np.load(os.path.join(tmp, "knn.npz")) as z:
+            q, refs, rmask = (torch.from_numpy(z[k]).to(device)
+                              for k in ("q", "refs", "mask"))
+        dist.barrier()
+        knn_ms, dense_ms = check_sharded_knn(
+            f"[parallel] rank {rank}", kmesh, q, refs, rmask)
+        r_loc, m_loc = model_shard(refs, kmesh), model_shard(rmask, kmesh)
+        d2, idx = knn(q, r_loc, m_loc, 5)
+        group = kmesh.get_group("model")
+
+        def exchange():
+            for t in (d2, idx):
+                dist.all_gather([torch.empty_like(t) for _ in range(size)],
+                                t, group=group)
+        dist.barrier()
+        exchange_ms = host_ms(exchange)
+        local_knn_ms = host_ms(lambda: knn(q, r_loc, m_loc, 5))
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(dict(local=local, offset=off, ms=ms, peak=peak,
+                           launches=launches, busy_ms=busy, wall_ms=wall,
+                           ops=ops, knn_ms=knn_ms, dense_ms=dense_ms,
+                           local_knn_ms=local_knn_ms,
+                           exchange_ms=exchange_ms), fh)
+        say(f"[parallel] rank {rank} of {size} (gloo, {device}): "
+            f"{local} streams from {off}, {len(frames)} frames, bit-equal "
+            f"to step_b on them in this process, gather_outputs in stream "
+            f"order, sharded_knn equal to the dense knn")
+    finally:
+        dist.destroy_process_group()
+
 
 def main() -> None:
     import torch
@@ -1691,7 +2064,9 @@ def main() -> None:
     check_adversarial_select(mods, device, card)
     check_adversarial_merge(mods, device, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
-    launches, st_b = run_step(pipeline, mods, cfg, frames, gt, device, card)
+    launches, st_b, outs_b, ms_b, busy_b = run_step(pipeline, mods, cfg, frames, gt,
+                                            device, card)
+    knn_pts = knn_points(st_b.map, cfg)
 
     # ---- 7-9. knn_select, the single-stream step, the CLI ----------------
     cfg_1 = PRESETS["HDL-64"]
@@ -1718,6 +2093,10 @@ def main() -> None:
     launches["lm_fused_s"] = run_distortion(
         pipeline, mods, cfg, cfg_1, device, results, card)["lm_fused_s"]
 
+    # ---- 11. streams and the kNN split over torch.distributed ranks -------
+    run_parallel(pipeline, mods, cfg, frames, outs_b, ms_b, busy_b,
+                 launches, knn_pts, device, card)
+
     kernels = [dict(name=name, route="cuda", source=spec[3],
                     replaces=spec[4], launches=launches[name],
                     max_abs_err=results[name]["max_abs_err"],
@@ -1736,4 +2115,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(sys.argv[2])
+    else:
+        main()

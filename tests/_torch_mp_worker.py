@@ -1,0 +1,125 @@
+"""Worker process for tests/test_torch_parallel.py: one rank of the
+port's multi-process runtime over gloo.
+
+Run as ``python tests/_torch_mp_worker.py <mode> <dir>`` with
+``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` set, as
+``torchrun`` sets them; ``distributed.initialize()`` reads them. Modes:
+
+* ``knn``: ``sharded_knn`` over a (1, world) mesh on every case of
+  ``<dir>/knn_in.npz`` (query ``q<i>``, refs ``r<i>``, mask ``m<i>``);
+  writes ``knn_out_<rank>.npz`` (``d<i>``, ``i<i>``, and ``refused``,
+  the error ``batched_step_fn`` raises on that mesh).
+* ``step``: ``batched_step_fn`` over a (world, 1) mesh on this rank's
+  streams of ``<dir>/step_in.npz`` (xyz (F, B, n, 3), mask (F, B, n)) at
+  the tiny config; writes the gathered outputs of every frame to
+  ``step_out_<rank>.npz``.
+* ``mp``: an ``all_reduce`` of rank + 1 over the "data" axis, then one
+  sharded step on this rank's own stream; prints ``MP_OK <rank> <sum>``.
+
+It imports torch, numpy and the port, never ``jax`` or ``aloam_tpu``:
+it proves that the port runs without them.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+
+from aloam_tpu_torch.config import AloamConfig  # noqa: E402
+from aloam_tpu_torch.io import synthetic as syn  # noqa: E402
+from aloam_tpu_torch.parallel import (  # noqa: E402
+    batched_init, batched_step_fn, distributed, gather_outputs, make_mesh,
+    model_shard, sharded_knn)
+
+# tests/test_sharding.py's tiny config
+CFG = AloamConfig(
+    scan_lines=16, minimum_range=0.3,
+    line_resolution=0.2, plane_resolution=0.4,
+    n_raw=4096, ring_cap=256, less_flat_cap=2048,
+    map_table_corner=1024, map_table_surf=2048,
+    corner_stack_cap=256, surf_stack_cap=1024,
+)
+
+
+def run_knn(d: str, size: int, rank: int) -> None:
+    mesh = make_mesh(1, size, "cpu")
+    out = {}
+    try:
+        batched_step_fn(CFG, mesh)
+    except ValueError as e:       # the map tables are not split over "model"
+        out["refused"] = np.array(str(e))
+    knn = sharded_knn(mesh, k=5)
+    with np.load(os.path.join(d, "knn_in.npz")) as z:
+        for i in range(len(z.files) // 3):
+            q, r, m = (torch.from_numpy(z[f"{c}{i}"]) for c in "qrm")
+            d2, idx = knn(q, model_shard(r, mesh), model_shard(m, mesh))
+            out[f"d{i}"], out[f"i{i}"] = d2.numpy(), idx.numpy()
+    np.savez(os.path.join(d, f"knn_out_{rank}.npz"), **out)
+
+
+def run_step(d: str, size: int, rank: int) -> None:
+    mesh = make_mesh(size, 1, "cpu")
+    with np.load(os.path.join(d, "step_in.npz")) as z:
+        xyz, mask = z["xyz"], z["mask"]
+    local, off = distributed.process_local_batch(xyz.shape[1])
+    step = batched_step_fn(CFG, mesh)
+    st = batched_init(CFG, local, "cpu")
+    out = {}
+    for f in range(xyz.shape[0]):
+        st, o = step(st, torch.from_numpy(xyz[f, off:off + local]),
+                     torch.from_numpy(mask[f, off:off + local]))
+        g = gather_outputs(o, mesh)
+        for name in ("q_odom", "t_odom", "q_map", "t_map", "q_hf", "t_hf",
+                     "metrics"):
+            out[f"{name}_{f}"] = getattr(g, name).numpy()
+    np.savez(os.path.join(d, f"step_out_{rank}.npz"), **out)
+
+
+def run_mp(size: int, rank: int) -> None:
+    mesh = distributed.global_mesh(1, "cpu")
+    if mesh.size(0) != size:
+        raise RuntimeError(f"mesh {mesh.mesh.tolist()} for {size} ranks")
+    local, off = distributed.process_local_batch(size)
+    if (local, off) != (1, rank):
+        raise RuntimeError(f"process_local_batch: {(local, off)}")
+    v = torch.full((128,), float(rank + 1))
+    dist.all_reduce(v, group=mesh.get_group("data"))
+    if not bool((v == v[0]).all()):
+        raise RuntimeError(f"all_reduce: {v}")
+    scans, _ = syn.make_sequence(1, scan_lines=16, n_azimuth=256,
+                                 seed=10 + rank)
+    xyz, mask = (torch.from_numpy(a)[None]
+                 for a in syn.pad_scan(scans[0], CFG.n_raw))
+    _, outs = batched_step_fn(CFG, mesh)(batched_init(CFG, 1, "cpu"), xyz,
+                                         mask)
+    t_map = gather_outputs(outs, mesh).t_map
+    if t_map.shape != (size, 3) or not bool(torch.isfinite(t_map).all()):
+        raise RuntimeError(f"t_map {t_map}")
+    print(f"MP_OK {rank} {float(v[0])}", flush=True)
+
+
+def main() -> None:
+    mode, d = sys.argv[1], sys.argv[2]
+    torch.set_num_threads(1)
+    distributed.initialize(backend="gloo")
+    size, rank = distributed.world()
+    try:
+        if mode == "knn":
+            run_knn(d, size, rank)
+        elif mode == "step":
+            run_step(d, size, rank)
+        elif mode == "mp":
+            run_mp(size, rank)
+        else:
+            raise ValueError(f"mode {mode!r}")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

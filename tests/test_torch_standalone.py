@@ -2,8 +2,8 @@
 and its own copies of the framework-free modules (config, io, eval, the
 CLI's flags) give what the JAX package's give.
 
-Every module of ``aloam_tpu_torch`` and ``chip_smoke.py`` is read as a
-syntax tree, so an import inside a function counts as much as one at the
+Every module of ``aloam_tpu_torch``, ``chip_smoke.py`` and the worker
+script of tests/test_torch_parallel.py is read as a syntax tree, so an import inside a function counts as much as one at the
 top. The copies are held to the originals on seeded inputs: configs field
 by field, scenes array by array, trajectory metrics to 1e-12.
 """
@@ -29,7 +29,10 @@ FORBIDDEN = ("jax", "aloam_tpu")
 
 
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    # the worker processes of tests/test_torch_parallel.py run the port
+    # alone, so they are held to the same rule
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "_torch_mp_worker.py")]
     for root, _, files in os.walk(os.path.join(REPO, "aloam_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
