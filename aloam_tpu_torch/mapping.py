@@ -114,7 +114,7 @@ def _local_cells(cfg: AloamConfig, device=None) -> torch.Tensor:
 
 
 def _eager_evict_count(state: MapState, pose_cell: torch.Tensor,
-                       cfg: AloamConfig):
+                       cfg: AloamConfig, shard=None):
     """Rolling-window discard and local-map census at the top of the
     mapping step (the reference's cube shift, :323-507, with the point
     count that gates the solve, :531-554). Returns (state, n_cleared,
@@ -122,9 +122,9 @@ def _eager_evict_count(state: MapState, pose_cell: torch.Tensor,
     dev = pose_cell.device
     window, local = _window_cells(cfg, dev), _local_cells(cfg, dev)
     corner, n_c, near_c = gridmap.evict_and_count(
-        state.corner, pose_cell, window, local, cfg.eager_window_evict)
+        state.corner, pose_cell, window, local, cfg.eager_window_evict, shard)
     surf, n_s, near_s = gridmap.evict_and_count(
-        state.surf, pose_cell, window, local, cfg.eager_window_evict)
+        state.surf, pose_cell, window, local, cfg.eager_window_evict, shard)
     return state._replace(corner=corner, surf=surf), n_c + n_s, near_c, \
         near_s
 
@@ -286,7 +286,7 @@ class _Start(NamedTuple):
 
 
 def _start(state: MapState, corner_in: PointCloud, surf_in: PointCloud,
-           q_wodom, t_wodom, cfg: AloamConfig) -> _Start:
+           q_wodom, t_wodom, cfg: AloamConfig, shard=None) -> _Start:
     """What both mapping steps do before the solve: the initial guess from
     the odometry pose (transformAssociateToMap, :142-146), the
     rolling-window discard and the local-map census that gates the solve
@@ -296,7 +296,7 @@ def _start(state: MapState, corner_in: PointCloud, surf_in: PointCloud,
     t_w = geo.qrot(state.q_wmap_wodom, t_wodom) + state.t_wmap_wodom
     pose_cell = gridmap._cells_of(t_w, cfg.knn_cell)
     state, cleared, n_map_corner, n_map_surf = _eager_evict_count(
-        state, pose_cell, cfg)
+        state, pose_cell, cfg, shard)
     solve_ok = (n_map_corner > cfg.map_min_corner) \
         & (n_map_surf > cfg.map_min_surf)
 
@@ -317,7 +317,7 @@ def _start(state: MapState, corner_in: PointCloud, surf_in: PointCloud,
 
 def _finish(st: _Start, corner: PointCloud, surf: PointCloud, q_w, t_w,
             q_wodom, t_wodom, cfg: AloamConfig, n_edge, n_plane, degen,
-            spills, crossed):
+            spills, crossed, shard=None):
     """What both mapping steps do after the solve: transformUpdate
     (:148-152), then the insert (:736-801) of both stacks at the refined
     pose: to the map frame, re-voxelized on the map-anchored grid (PCL's
@@ -332,7 +332,7 @@ def _finish(st: _Start, corner: PointCloud, surf: PointCloud, q_w, t_w,
         return gridmap.insert_vds_b(
             grid, _world(q_w, t_w, stack), stack.intensity, stack.mask, leaf,
             cfg.knn_cell, center, window, cfg.map_insert_point_cap,
-            cfg.map_insert_cell_cap)
+            cfg.map_insert_cell_cap, shard)
 
     corner_g, _, _, ev1, dr1 = ins(st.state.corner, corner,
                                    cfg.line_resolution)
@@ -363,14 +363,20 @@ def _n_crossed(cells0, sel_c, sel_s, live_c, live_s, cfg: AloamConfig):
 
 def mapping_step_b(state: MapState, corner_in: PointCloud,
                    surf_in: PointCloud, q_wodom: torch.Tensor,
-                   t_wodom: torch.Tensor, cfg: AloamConfig):
+                   t_wodom: torch.Tensor, cfg: AloamConfig,
+                   shard: gridmap.TableShard | None = None):
     """One mapping frame for B streams (laserMapping.cpp process(),
     :231-888): clouds (B, N, ·), odometry poses (B, 4) / (B, 3). Round 2+
     reuses round 1's knn cache when ``cfg.map_cache_reuse`` (the reference
     re-runs its kd-tree search each round). The map tables of ``state``
-    are updated in place. Returns (new_state, MapMetrics); the refined
-    pose is new_state.(q_w, t_w)."""
-    st = _start(state, corner_in, surf_in, q_wodom, t_wodom, cfg)
+    are updated in place. With a ``shard`` the state's tables are this
+    rank's part of partitioned ones (``gridmap.TableShard``) and every
+    other input is the group's common one: the evict clears and the insert
+    merges the owned rows, the knn cache comes whole from the rows'
+    owners, and the counts are summed over the group, so every rank of it
+    gets the whole-table step's outputs. Returns (new_state, MapMetrics);
+    the refined pose is new_state.(q_w, t_w)."""
+    st = _start(state, corner_in, surf_in, q_wodom, t_wodom, cfg, shard)
     q_w, t_w, corner, surf = st.q_w, st.t_w, st.corner, st.surf
 
     def build_cache(grid, stack, qq, tt):
@@ -379,7 +385,7 @@ def mapping_step_b(state: MapState, corner_in: PointCloud,
             grid, _world(qq, tt, stack), cfg.knn_cell, cfg.knn_radius,
             cfg.map_cell_cap, payloads=(stack.xyz[..., 0], stack.xyz[..., 1],
                                         stack.xyz[..., 2], stack.intensity,
-                                        stack.mask))
+                                        stack.mask), shard=shard)
         return cache, PointCloud(xyz=torch.stack([sx, sy, sz], -1),
                                  intensity=it, mask=mi)
 
@@ -412,7 +418,7 @@ def mapping_step_b(state: MapState, corner_in: PointCloud,
         n_edge = edges.mask.sum(dim=1)
         n_plane = planes.mask.sum(dim=1)
     return _finish(st, corner, surf, q_w, t_w, q_wodom, t_wodom, cfg,
-                   n_edge, n_plane, degen, spills, crossed)
+                   n_edge, n_plane, degen, spills, crossed, shard)
 
 
 def _batch1(factors):

@@ -20,6 +20,13 @@ Layout, unchanged from the JAX package so states compare bit for bit:
 The port updates the tables in place (``evict_and_count`` and the insert's
 merge, ``ops/insert.merge_rows``): a state passed to the mapping step is
 consumed.
+
+A table may be partitioned over its bucket axis (:class:`TableShard`): a
+rank then holds rows [index·H/count, (index+1)·H/count) of every stream's
+H-row table, and the functions that take a ``shard`` hash with the whole
+table's size, touch only the rows this rank owns, and sum their counts
+over the group. Every other input (queries, points, poses) is the same on
+every rank of the group.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from aloam_tpu_torch.ops import insert as insert_op
 from aloam_tpu_torch.ops import knn as knn_op
@@ -67,6 +75,45 @@ class GridMap(NamedTuple):
     def cell(self) -> torch.Tensor:    # (..., 3·Bk) i32 cell coordinates
         return self._auxv()[..., 1:4, :].reshape(
             self.aux.shape[:-1] + (3 * self.bucket_cap,))
+
+
+class TableShard(NamedTuple):
+    """This rank's part of tables partitioned over their bucket axis: rows
+    [index·h, (index+1)·h) of H = h·count, where h is the leaves' own
+    dim 1. Counts and exchanged rows are summed over ``group``; with group
+    None nothing is exchanged and a function returns this part's own
+    partial sums (the CPU tests simulate ranks so). ``None`` in place of a
+    TableShard means the whole table."""
+    group: object
+    index: int
+    count: int
+
+
+def _table_size(rows: int, shard: TableShard | None) -> int:
+    """H, the hash modulus, of tables whose leaves hold ``rows`` rows."""
+    return rows if shard is None else rows * shard.count
+
+
+def _group_sum(t: torch.Tensor, shard: TableShard | None) -> torch.Tensor:
+    """``t`` summed over the shard's group, in place (nothing to do for a
+    whole table or a group of None)."""
+    if shard is not None and shard.group is not None:
+        dist.all_reduce(t, group=shard.group)
+    return t
+
+
+def _owned_rows(table: torch.Tensor, rows: torch.Tensor,
+                shard: TableShard) -> torch.Tensor:
+    """``bgather(whole table, rows)`` from a partitioned one, rows (B, ...)
+    global bucket ids: each rank gathers the rows it owns and zeroes the
+    rest, and the group sums the int32 bits, so every row comes from its
+    owner bit for bit (a float sum would turn -0.0 into +0.0)."""
+    h = table.shape[1]
+    lo = shard.index * h
+    own = (rows >= lo) & (rows < lo + h)
+    got = bgather(table, torch.where(own, rows - lo, 0))
+    got.masked_fill_(~own[..., None], 0)
+    return _group_sum(got.view(torch.int32), shard).view(table.dtype)
 
 
 def empty(batch: int, table_size: int, bucket_cap: int,
@@ -143,9 +190,58 @@ def block_buckets(query: torch.Tensor, table_size: int, cell_size: float,
     return _block(_cells_of(query - radius, cell_size), table_size)
 
 
+def n_valid(grid: GridMap, shard: TableShard | None = None) -> torch.Tensor:
+    """Live entries of a table, every leading axis summed (0-dim), over
+    the shard's group."""
+    return _group_sum((grid._auxv()[..., 1, :] != _EMPTY).sum(), shard)
+
+
+def count_near(grid: GridMap, center: torch.Tensor, half_cells: torch.Tensor,
+               shard: TableShard | None = None) -> torch.Tensor:
+    """Live entries within center ± half_cells (cell coordinates): the
+    reference's local 5×5×3-cube map-point count that gates the mapping
+    solve (laserMapping.cpp:531-554). Grid leaves (H, ·) and center (3,)
+    give a 0-dim count; (B, H, ·) and (B, 3) one per stream (B,). Summed
+    over the shard's group."""
+    c = grid._auxv()[..., 1:4, :]                    # (..., H, 3, Bk)
+    near = (c[..., 0, :] != _EMPTY) & (
+        (c - center[..., None, :, None]).abs()
+        <= half_cells[:, None]).all(dim=-2)
+    return _group_sum(near.sum(dim=(-2, -1)), shard)
+
+
+count_near_b = count_near   # the JAX package's batched name
+
+
+def _clear(grid: GridMap, out: torch.Tensor) -> None:
+    """Clear the slots ``out`` (..., H, Bk) in place."""
+    av = grid._auxv()
+    av[..., 0, :].masked_fill_(out, 0)
+    av[..., 1:4, :].masked_fill_(out[..., None, :], _EMPTY)
+    av[..., 4, :].masked_fill_(out, 0)
+    _viewp(grid.pts).masked_fill_(out[..., None, :], _FAR)
+
+
+def invalidate_outside(grid: GridMap, center: torch.Tensor,
+                       half_cells: torch.Tensor,
+                       shard: TableShard | None = None):
+    """Clear every live entry outside center ± half_cells, in place: the
+    reference's rolling-window discard (laserMapping.cpp:323-507). Grid
+    leaves (H, ·) with center (3,), or (B, H, ·) with (B, 3). Returns
+    (grid, n_cleared), n_cleared 0-dim or (B,), summed over the shard's
+    group (each rank clears its own rows)."""
+    c = grid._auxv()[..., 1:4, :]
+    out = (c[..., 0, :] != _EMPTY) & (
+        (c - center[..., None, :, None]).abs() > half_cells[:, None]).any(
+            dim=-2)
+    n_out = out.sum(dim=(-2, -1))
+    _clear(grid, out)
+    return grid, _group_sum(n_out, shard)
+
+
 def evict_and_count(grid: GridMap, center: torch.Tensor,
                     window_half: torch.Tensor, local_half: torch.Tensor,
-                    evict: bool = True):
+                    evict: bool = True, shard: TableShard | None = None):
     """Rolling-window discard and local-map census in one pass over the
     cell planes: clears every live entry outside center ± window_half (the
     reference's cube shift, laserMapping.cpp:323-507) and counts the live
@@ -155,23 +251,22 @@ def evict_and_count(grid: GridMap, center: torch.Tensor,
     The clear runs unconditionally, in place, as masked fills (the JAX
     package skips it under a ``lax.cond`` on frames with nothing out; the
     condition would cost a host sync here). With ``evict`` False the table
-    is untouched and the census counts stale in-window entries too.
-    Returns (grid, n_cleared (B,), n_near (B,))."""
-    av = grid._auxv()                                  # (B, H, 5, Bk)
-    c = av[:, :, 1:4, :]
+    is untouched and the census counts stale in-window entries too. On a
+    shard each rank clears its own rows and both counts are summed over
+    the group. Returns (grid, n_cleared (B,), n_near (B,))."""
+    c = grid._auxv()[:, :, 1:4, :]                     # (B, H, 3, Bk)
     live = c[:, :, 0, :] != _EMPTY
     d = (c - center[:, None, :, None]).abs()
     near = live & (d <= local_half[None, None, :, None]).all(dim=2)
     if not evict:
-        n_near = near.sum(dim=(1, 2))
+        n_near = _group_sum(near.sum(dim=(1, 2)), shard)
         return grid, torch.zeros_like(n_near), n_near
     out = live & (d > window_half[None, None, :, None]).any(dim=2)
     n_near = (near & ~out).sum(dim=(1, 2))
     n_out = out.sum(dim=(1, 2))
-    av[:, :, 0, :].masked_fill_(out, 0)
-    av[:, :, 1:4, :].masked_fill_(out[:, :, None, :], _EMPTY)
-    av[:, :, 4, :].masked_fill_(out, 0)
-    _viewp(grid.pts).masked_fill_(out[:, :, None, :], _FAR)
+    _clear(grid, out)
+    if shard is not None:
+        n_out, n_near = _group_sum(torch.stack([n_out, n_near]), shard)
     return grid, n_out, n_near
 
 
@@ -189,7 +284,7 @@ class KnnCache(NamedTuple):
 
 def knn_cache_b(grid: GridMap, query: torch.Tensor, cell_size: float,
                 radius: float = 1.0, cell_cap: int = 4096,
-                payloads: tuple = ()):
+                payloads: tuple = (), shard: TableShard | None = None):
     """Group queries (B, Q, 3) by their base cell floor((q - radius) /
     cell) and gather each occupied cell's 2×2×2 bucket block once.
 
@@ -197,12 +292,14 @@ def knn_cache_b(grid: GridMap, query: torch.Tensor, cell_size: float,
     cache alone when there are none, else ``(cache, sorted_payloads)``.
     Queries beyond ``cell_cap`` distinct cells per stream go to the spill
     slot and are counted in ``n_spilled`` (per stream; the JAX package
-    sums over the batch)."""
+    sums over the batch). On a shard the candidate rows come from their
+    owners (:func:`_owned_rows`), so every rank builds the whole-table
+    cache."""
     if cell_size < 2 * radius:
         raise ValueError(f"cell_size {cell_size} < 2 * radius {radius}")
     bsz, q_n = query.shape[:2]
     dev = query.device
-    table_size = grid.pts.shape[1]
+    table_size = _table_size(grid.pts.shape[1], shard)
     bk = grid.bucket_cap
 
     # --- group queries by base cell: one stable sort, payloads gathered ---
@@ -233,7 +330,8 @@ def knn_cache_b(grid: GridMap, query: torch.Tensor, cell_size: float,
 
     # --- per-cell candidate blocks (the deduplicated gather) --------------
     hh, dup = _block(slot_cell, table_size)                  # (B, C+P, 8)
-    cand = bgather(grid.pts, hh)                             # (B,C+P,8,3Bk)
+    cand = bgather(grid.pts, hh) if shard is None \
+        else _owned_rows(grid.pts, hh, shard)                # (B,C+P,8,3Bk)
     # a bucket that two block cells share is read once: the later copy is
     # poisoned at the _FAR sentinel
     cand = cand.masked_fill_(dup[..., None], _FAR)
@@ -302,7 +400,8 @@ def knn(grid: GridMap, query: torch.Tensor, k: int, cell_size: float,
 def insert_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
              mask: torch.Tensor, leaf: float, cell_size: float,
              center: torch.Tensor, window: torch.Tensor,
-             point_cap: int = 16, touched_cap: int = 4096):
+             point_cap: int = 16, touched_cap: int = 4096,
+             shard: TableShard | None = None):
     """Batched insert of one frame's voxel-downsampled stack per stream:
     pts (B, N, 3), inten and mask (B, N), center (B, 3) pose cells,
     window (3,) half-extent in cells.
@@ -313,8 +412,9 @@ def insert_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
     voxel id; a merge takes the midpoint; appends fill slots in eviction
     order (empty < out-of-window < in-window, farthest first). Returns
     (grid, merged, appended, evicted, dropped), each (B,); dropped counts
-    valid points that neither merged nor appended."""
-    table_size = grid.aux.shape[1]
+    valid points that neither merged nor appended. On a shard each rank
+    merges the rows it owns and the counts are summed over the group."""
+    table_size = _table_size(grid.aux.shape[1], shard)
     cell = _cells_of(pts, cell_size)
     vox = _vox_id(pts, leaf)
     key = torch.where(mask, _hash(cell, table_size), table_size)
@@ -323,19 +423,23 @@ def insert_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
     return _insert_sorted(grid, key_s, px_s, py_s, pz_s,
                           inten.gather(1, order), vox.gather(1, order),
                           mask.sum(dim=1), leaf, cell_size, center, window,
-                          point_cap, touched_cap)
+                          point_cap, touched_cap, shard)
 
 
 def _insert_sorted(grid: GridMap, key_s, px_s, py_s, pz_s, pi_s, vox_s,
                    total_valid, leaf: float, cell_size: float,
                    center: torch.Tensor, window: torch.Tensor,
-                   point_cap: int, touched_cap: int):
+                   point_cap: int, touched_cap: int,
+                   shard: TableShard | None):
     """insert_b after the bucket sort: key_s (B, N) sorted bucket ids with
     invalid rows at the ``table_size`` sentinel, and the sorted payload
-    planes. Shared by insert_b and insert_vds_b."""
+    planes. Shared by insert_b and insert_vds_b. On a shard the rows and
+    the touched_cap / point_cap cuts are formed on the whole sorted list,
+    as for the whole table, so every rank drops the same points; then
+    only the owned rows are merged (:func:`_owned_run`)."""
     bsz, n = key_s.shape
     dev = key_s.device
-    table_size = grid.aux.shape[1]
+    table_size = _table_size(grid.aux.shape[1], shard)
     cap_c, cap_p = touched_cap, point_cap
     valid_s = key_s < table_size
 
@@ -374,6 +478,10 @@ def _insert_sorted(grid: GridMap, key_s, px_s, py_s, pz_s, pi_s, vox_s,
     slot_h = torch.zeros((n_rows + 1,), dtype=torch.int32, device=dev)
     slot_h[brow.reshape(-1)] = key_s.reshape(-1)
     slot_h = slot_h[:n_rows].view(bsz, cap_c)
+    if shard is not None:
+        slot_h, cnt, ppx, ppy, ppz, ppi, pvox = _owned_run(
+            slot_h, cnt, (ppx, ppy, ppz, ppi, pvox), grid.aux.shape[1],
+            shard.index)
 
     # --- merge and eviction-priority appends, in place (kernel module) ----
     merged_pb, appended_pb, evicted_pb = insert_op.merge_rows(
@@ -384,14 +492,45 @@ def _insert_sorted(grid: GridMap, key_s, px_s, py_s, pz_s, pi_s, vox_s,
     merged = merged_pb.sum(dim=1)
     appended = appended_pb.sum(dim=1)
     evicted = evicted_pb.sum(dim=1)
+    if shard is not None:
+        merged, appended, evicted = _group_sum(
+            torch.stack([merged, appended, evicted]), shard)
     dropped = total_valid - merged - appended
     return grid, merged, appended, evicted, dropped
+
+
+def _owned_run(slot_h: torch.Tensor, cnt: torch.Tensor, lists: tuple,
+               rows: int, index: int):
+    """The insert's bucket rows that part ``index`` of a partitioned table
+    (``rows`` rows a part) owns, moved to the front of each stream's rows.
+
+    slot_h and cnt (B, C) as ``_insert_sorted`` builds them: the used rows
+    (cnt > 0) a prefix of ascending, distinct global buckets, so the owned
+    ones, buckets in [index·rows, (index+1)·rows), are one run of it.
+    ``lists`` (B, C, P) follow their rows. Returns (slot_h, cnt, *lists)
+    with the run at rows [0, run length), slot_h local, and every row past
+    it unused (cnt 0, slot_h 0): the prefix that ``ops/insert.merge_rows``
+    takes (its plain version sends unused rows to row 0's place). A stream
+    with no owned row gets no used row."""
+    lo = index * rows
+    used = cnt > 0
+    first = (used & (slot_h < lo)).sum(dim=1, keepdim=True)
+    n_own = (used & (slot_h >= lo) & (slot_h < lo + rows)).sum(
+        dim=1, keepdim=True)
+    cap_c = cnt.shape[1]
+    j = torch.arange(cap_c, device=cnt.device)
+    take = j < n_own
+    src = (first + j).clamp_max(cap_c - 1)
+    return (torch.where(take, slot_h.gather(1, src) - lo, 0),
+            torch.where(take, cnt.gather(1, src), 0),
+            *(p.gather(1, src[..., None].expand_as(p)) for p in lists))
 
 
 def insert_vds_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
                  mask: torch.Tensor, leaf: float, cell_size: float,
                  center: torch.Tensor, window: torch.Tensor,
-                 point_cap: int = 16, touched_cap: int = 4096):
+                 point_cap: int = 16, touched_cap: int = 4096,
+                 shard: TableShard | None = None):
     """Map-frame voxel downsample fused with insert: the same result as
     ``voxel_downsample_masked_b(vals, mask, leaf, out_cap=N)`` followed by
     :func:`insert_b`, one sort cheaper. Each voxel's mean is formed at its
@@ -399,9 +538,9 @@ def insert_vds_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
     ``table_size`` sentinel), and one stable sort groups the means by
     bucket in voxel order. pts (B, N, 3) map-frame points. Returns (grid,
     merged, appended, evicted, dropped), dropped counted against the
-    number of occupied voxels."""
+    number of occupied voxels; a shard as in :func:`insert_b`."""
     from aloam_tpu_torch.frontend.voxel import voxel_segment_tails
-    table_size = grid.aux.shape[1]
+    table_size = _table_size(grid.aux.shape[1], shard)
     vals = torch.cat([pts, inten[..., None]], dim=-1)
     sums, cnts, is_tail = voxel_segment_tails(vals, mask, leaf)
     den = cnts.clamp_min(1.0)       # divide (not * reciprocal): JAX parity
@@ -417,7 +556,7 @@ def insert_vds_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
     vox_s = _vox_id(torch.stack([px_s, py_s, pz_s], dim=-1), leaf)
     return _insert_sorted(grid, key_s, px_s, py_s, pz_s, pi_s, vox_s,
                           is_tail.sum(dim=1), leaf, cell_size, center,
-                          window, point_cap, touched_cap)
+                          window, point_cap, touched_cap, shard)
 
 
 def extract(grid: GridMap):

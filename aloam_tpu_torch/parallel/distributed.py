@@ -9,9 +9,11 @@ own streams (``sharding.batched_step_fn``).
 
 Axis placement: the "data" axis (streams) carries no collective on the
 hot path, since each stream's SLAM state is private, so it is the axis to
-stretch across hosts. The "model" axis splits the reference points of
-``sharding.sharded_knn``; :func:`global_mesh` puts it fastest-varying,
-so a model group is adjacent ranks (the same host under ``torchrun``).
+stretch across hosts. The "model" axis splits the map tables inside
+``sharding.batched_step_fn`` (an exchange of knn cache rows every cache
+build) and the reference points of ``sharding.sharded_knn``;
+:func:`global_mesh` puts it fastest-varying, so a model group is adjacent
+ranks (the same host under ``torchrun``).
 
 The backend is NCCL, one card a rank, unless the caller names another:
 the CPU tests, and ranks that share one card (NCCL refuses two ranks on

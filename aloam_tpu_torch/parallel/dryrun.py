@@ -2,17 +2,17 @@
 ``dryrun_multichip``).
 
 :func:`dryrun_multichip` starts ``n_ranks`` processes; each runs
-:func:`run_rank`, which steps its own streams over a ("data" = n_ranks,
-"model" = 1) mesh, holds the gathered trajectories against the unsharded
-step on rank 0, and then runs ``sharded_knn`` over a (1, n_ranks) mesh of
-the same ranks against the dense ``knn``. Rank 0 prints three OK lines:
-the trajectory match, the sharded kNN, and the dry run.
-
-The JAX dry run also asserts that the map tables are partitioned over
-"model" and prints a line for it; that check waits for the model-axis
-table partition (ROADMAP queue 1), since the port's sharded step runs
-only with n_model = 1. Unlike the JAX dry run, which steps one stream a
-device, each rank steps two streams.
+:func:`run_rank` on the JAX dry run's mesh: ("data" = n_ranks / 2,
+"model" = 2) when n_ranks is even and at least 4, else (n_ranks, 1).
+Each model group steps its own two streams, with each rank holding its
+part of their map tables. Every rank asserts that its table leaves are
+its part, (B / n_data, H / n_model, ·), and that the parts' bytes times
+the ranks make the whole; rank 0 holds the gathered trajectories against
+the unsharded step. Then ``sharded_knn`` runs over a (1, n_ranks) mesh of
+the same ranks against the dense ``knn``. Rank 0 prints four OK lines:
+the table partition, the trajectory match, the sharded kNN, and the dry
+run. Unlike the JAX dry run, which steps one stream a data rank, each
+model group steps two streams.
 
     python -m aloam_tpu_torch.parallel.dryrun --ranks 4 --device cpu
     torchrun --nproc-per-node 4 -m aloam_tpu_torch.parallel.dryrun --device cpu
@@ -41,7 +41,7 @@ from aloam_tpu_torch.parallel.sharding import (
     make_mesh, model_shard, sharded_knn)
 
 N_FRAMES = 3
-STREAMS_PER_RANK = 2
+STREAMS_PER_GROUP = 2   # streams each model group steps
 # the JAX dry run's bound: a placement or offset bug moves a stream by
 # decimetres; the same program on other stream counts rounds otherwise
 # only where the lm_fused cluster plan changes with B
@@ -73,15 +73,40 @@ def dryrun_streams(cfg: AloamConfig, ids, device):
 
 
 def _trajectory(step, cfg, batch, xyz, mask, device, mesh=None):
-    """t_map (B, F, 3) of ``step`` over the frames from fresh streams;
-    with a mesh, gathered over its data group."""
-    st = batched_init(cfg, batch, device)
+    """t_map (B, F, 3) of ``step`` over the frames from fresh streams (with
+    a mesh: this rank's part of their tables, the trajectories gathered
+    over its data group), and the final state."""
+    st = batched_init(cfg, batch, device, mesh)
     traj = []
     for f in range(N_FRAMES):
         st, outs = step(st, xyz[f], mask[f])
         traj.append((outs if mesh is None
                      else gather_outputs(outs, mesh)).t_map)
-    return torch.stack(traj, dim=1).cpu().numpy()
+    return torch.stack(traj, dim=1).cpu().numpy(), st
+
+
+def check_partition(state, cfg: AloamConfig, mesh, batch: int) -> tuple:
+    """The JAX dry run's partition assert on this rank: every map table
+    leaf is (batch / n_data, H / n_model, ·), and the bytes of one rank's
+    parts times the ranks equal the whole tables'. Raises
+    ``RuntimeError``; returns (this rank's bytes, the whole's)."""
+    n_data, n_model = mesh.size(0), mesh.size(1)
+    part = whole = 0
+    for kind, g, h in (("corner", state.map.corner, cfg.map_table_corner),
+                       ("surf", state.map.surf, cfg.map_table_surf)):
+        for leaf in g:
+            want = (batch // n_data, h // n_model, leaf.shape[-1])
+            if tuple(leaf.shape) != want:
+                raise RuntimeError(
+                    f"{kind} table NOT partitioned: this rank's part "
+                    f"{tuple(leaf.shape)}, expected {want} on a ({n_data} "
+                    f"data x {n_model} model) mesh")
+            part += leaf.nbytes
+            whole += batch * h * leaf.shape[-1] * leaf.element_size()
+    if part * n_data * n_model != whole:
+        raise RuntimeError(f"table bytes {part} a rank x {n_data * n_model} "
+                           f"ranks != {whole}")
+    return part, whole
 
 
 def check_sharded_knn(mesh, q, refs, mask, k: int = 5) -> None:
@@ -104,19 +129,26 @@ def run_rank(device_type: str) -> None:
     device = torch.device("cpu") if device_type == "cpu" \
         else torch.device("cuda", torch.cuda.current_device())
     cfg = dryrun_cfg()
-    batch = STREAMS_PER_RANK * size
-    local, off = distributed.process_local_batch(batch)
+    n_model = 2 if size % 2 == 0 and size >= 4 else 1
+    n_data = size // n_model
+    batch = STREAMS_PER_GROUP * n_data
+    mesh = make_mesh(n_data, n_model, device_type)
+    off = mesh.get_local_rank("data") * STREAMS_PER_GROUP
 
-    mesh = make_mesh(size, 1, device_type)
-    xyz, mask = dryrun_streams(cfg, range(off, off + local), device)
-    sharded = _trajectory(batched_step_fn(cfg, mesh), cfg, local, xyz, mask,
-                          device, mesh)
+    xyz, mask = dryrun_streams(cfg, range(off, off + STREAMS_PER_GROUP),
+                               device)
+    sharded, st = _trajectory(batched_step_fn(cfg, mesh), cfg,
+                              STREAMS_PER_GROUP, xyz, mask, device, mesh)
     if sharded.shape != (batch, N_FRAMES, 3):
         raise RuntimeError(f"gathered t_map {sharded.shape}")
+    part, whole = check_partition(st, cfg, mesh, batch)
     if rank == 0:
+        print(f"map tables partitioned OK: {part / 2 ** 20:.2f} MiB per "
+              f"device (= {whole / 2 ** 20:.2f} MiB total / {size} devices)",
+              flush=True)
         xyz, mask = dryrun_streams(cfg, range(batch), device)
-        unsharded = _trajectory(batched_step_jit(cfg, donate=False), cfg,
-                                batch, xyz, mask, device)
+        unsharded, _ = _trajectory(batched_step_jit(cfg, donate=False), cfg,
+                                   batch, xyz, mask, device)
         err = float(np.abs(sharded - unsharded).max())
         if not err <= TRAJ_ATOL:
             raise RuntimeError(f"sharded trajectories differ from the "
@@ -134,8 +166,8 @@ def run_rank(device_type: str) -> None:
     if rank == 0:
         print(f"sharded knn OK: mesh=(1 data x {size} model), Q=128, "
               f"M=1024, k=5, equal to the dense knn", flush=True)
-        print(f"dryrun_multichip OK: mesh=({size} data x 1 model), "
-              f"batch={batch}", flush=True)
+        print(f"dryrun_multichip OK: mesh=({n_data} data x {n_model} "
+              f"model), batch={batch}", flush=True)
 
 
 def dryrun_multichip(n_ranks: int, device: str = "cuda",

@@ -1,26 +1,31 @@
-"""Multi-rank scaling: streams split across ranks, and the sharded
-neighbour search (port of ``aloam_tpu/parallel/sharding.py``).
+"""Multi-rank scaling: streams split across ranks, the map tables split
+within a rank group, and the sharded neighbour search (port of
+``aloam_tpu/parallel/sharding.py``).
 
 The reference's only concurrency is three OS processes on one machine
 (SURVEY.md §2.4). The port scales over ``torch.distributed`` ranks on a
 ("data", "model") ``DeviceMesh``:
 
-* **Streams over "data".** Each rank steps its own ``B / n_data``
-  streams with ``pipeline.step_b``: every stream's state (pose, last
-  features, map tables) is private, so no collective runs on the hot
-  path. :func:`gather_outputs` collects the per-stream outputs in global
-  stream order for logging and tests.
+* **Streams over "data".** Each model group steps its own ``B /
+  n_data`` streams with ``pipeline.step_b``: every stream's state (pose,
+  last features, map tables) is private, so no collective crosses the
+  data axis on the hot path. :func:`gather_outputs` collects the
+  per-stream outputs in global stream order for logging and tests.
+* **The map tables over "model"** in :func:`batched_step_fn`, the JAX
+  package's ``P("data", "model")`` on every table leaf: model rank r
+  holds rows [r·H/n, (r+1)·H/n) of each of its streams' H-row tables
+  (:func:`shard_tables`, :func:`gather_tables`), so a group holds a map
+  n_model times one rank's memory. Everything else is replicated across
+  the group, which runs the same step on the same streams. GSPMD derives
+  the JAX package's collectives; here ``ops/gridmap.TableShard`` names
+  them: the knn cache's bucket rows come from their owners (one int32
+  ``all_reduce`` a cache build), the evict and the insert touch only the
+  owned rows, and their counts are summed over the group. Every rank of
+  the group gets the whole-table step's outputs bit for bit.
 * **The reference points over "model"** in :func:`sharded_knn`: each
   rank takes the local top-k of its slice of the refs, and the partial
   results merge after an ``all_gather`` over the model group.
 
-The JAX package also partitions the map tables' hash-bucket axis over
-"model" inside its sharded step, leaving GSPMD to derive the collectives.
-PyTorch has no compiler to derive them: every table access (the bucket
-row gathers, the kernels that read and write the table in place, the
-evict clear) would need its own row exchange over the model group. That
-is not ported yet (ROADMAP queue 1, "the model-axis table partition"), so
-:func:`batched_step_fn` refuses a mesh with n_model > 1.
 ``pin_table_layouts``, an XLA layout knob, has no counterpart.
 """
 
@@ -33,6 +38,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from aloam_tpu_torch import pipeline
 from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.neighbors import knn, smallest_k
+from aloam_tpu_torch.ops.gridmap import TableShard
 from aloam_tpu_torch.parallel.distributed import world
 
 
@@ -49,18 +55,63 @@ def make_mesh(n_data: int, n_model: int = 1,
                       mesh_dim_names=("data", "model"))
 
 
-def batched_init(cfg: AloamConfig, batch: int, device) -> pipeline.SlamState:
-    """The SLAM state of ``batch`` fresh streams (``pipeline.init_state``)."""
-    return pipeline.init_state(cfg, batch, device)
+def _check_tables(cfg: AloamConfig, n_model: int, what: str) -> None:
+    for name in ("map_table_corner", "map_table_surf"):
+        if getattr(cfg, name) % n_model:
+            raise ValueError(f"{what}: {n_model} model ranks do not divide "
+                             f"{name} = {getattr(cfg, name)}")
 
 
-def _clone_tables(state: pipeline.SlamState) -> pipeline.SlamState:
+def batched_init(cfg: AloamConfig, batch: int, device,
+                 mesh: DeviceMesh | None = None) -> pipeline.SlamState:
+    """The SLAM state of ``batch`` fresh streams (``pipeline.init_state``);
+    with a mesh, its map tables are this rank's part, (batch, H /
+    n_model, ·): what :func:`shard_tables` gives of the whole, made
+    directly."""
+    n = 1 if mesh is None else mesh.size(1)
+    _check_tables(cfg, n, "batched_init")
+    return pipeline.init_state(cfg.replace(
+        map_table_corner=cfg.map_table_corner // n,
+        map_table_surf=cfg.map_table_surf // n), batch, device)
+
+
+def _map_tables(state: pipeline.SlamState, fn) -> pipeline.SlamState:
+    """``state`` with ``fn`` applied to every map table leaf."""
     m = state.map
     return state._replace(map=m._replace(
-        corner=m.corner._replace(pts=m.corner.pts.clone(),
-                                 aux=m.corner.aux.clone()),
-        surf=m.surf._replace(pts=m.surf.pts.clone(),
-                             aux=m.surf.aux.clone())))
+        corner=type(m.corner)(*map(fn, m.corner)),
+        surf=type(m.surf)(*map(fn, m.surf))))
+
+
+def shard_tables(state: pipeline.SlamState,
+                 mesh: DeviceMesh) -> pipeline.SlamState:
+    """This rank's part of a whole state's map tables (the JAX package's
+    ``put_state``): every table leaf (B, H, ·) becomes its model rank r's
+    rows [r·H/n, (r+1)·H/n), copied, so the step's in-place updates leave
+    the whole state alone; every other leaf is kept. Raises unless n_model
+    divides H."""
+    n, r = mesh.size(1), mesh.get_local_rank("model")
+
+    def part(t):
+        h = t.shape[1]
+        if h % n:
+            raise ValueError(f"shard_tables: {n} model ranks do not divide "
+                             f"a table of {h} rows")
+        return t[:, r * h // n:(r + 1) * h // n].clone()
+    return _map_tables(state, part)
+
+
+def gather_tables(state: pipeline.SlamState,
+                  mesh: DeviceMesh) -> pipeline.SlamState:
+    """The whole map tables of a partitioned state: every table leaf's
+    parts ``all_gather``-ed over the model group and joined on the bucket
+    axis in model rank order; every other leaf is kept. Every rank of the
+    group calls it and gets the same."""
+    if mesh.size(1) == 1:
+        return state
+    group = mesh.get_group("model")
+    return _map_tables(state, lambda t: torch.cat(
+        list(_all_gather(t, group)), dim=1))
 
 
 def batched_step_jit(cfg: AloamConfig, donate: bool = True):
@@ -73,31 +124,33 @@ def batched_step_jit(cfg: AloamConfig, donate: bool = True):
     caller's state stays usable, as JAX's undonated input does."""
     def f(state, xyz, mask):
         if not donate:
-            state = _clone_tables(state)
+            state = _map_tables(state, torch.clone)
         return pipeline.step_b(state, xyz, mask, cfg)
     return f
 
 
 def batched_step_fn(cfg: AloamConfig, mesh: DeviceMesh):
-    """The batched step of one rank of the mesh's "data" axis: f(state,
-    xyz, mask) -> (state, SlamOutputs), where ``state``, ``xyz`` (B_local,
-    n_raw, 3) and ``mask`` (B_local, n_raw) are this rank's ``B /
-    n_data`` streams (``distributed.process_local_batch``) and the
-    outputs are too (:func:`gather_outputs` assembles the global ones).
-    The ranks exchange nothing: every stream's state is private. The map
+    """The batched step of one rank of the mesh: f(state, xyz, mask) ->
+    (state, SlamOutputs), where ``xyz`` (B_local, n_raw, 3) and ``mask``
+    (B_local, n_raw) are the rank's data group's ``B / n_data`` streams,
+    the same on every rank of its model group, and ``state`` holds them
+    with this rank's part of their map tables, (B_local, H / n_model, ·)
+    (:func:`batched_init` with the mesh, or :func:`shard_tables`). The
+    outputs are the data group's (:func:`gather_outputs` assembles the
+    global ones), the same on every rank of the model group. The map
     tables update in place, as in ``pipeline.step_b``.
 
-    Raises ``ValueError`` for n_model > 1 (the table partition, module
-    docstring) and on a rank outside the mesh."""
-    if mesh.size(1) > 1:
-        raise ValueError(
-            "batched_step_fn: n_model > 1 would partition the map tables' "
-            "hash-bucket axis over the model group, which the port does not "
-            "do yet (ROADMAP queue 1, 'the model-axis table partition'); use "
-            "an (n_data, 1) mesh")
+    Raises ``ValueError`` unless n_model divides both table sizes (as the
+    JAX package asserts), on a rank outside the mesh, and on a state whose
+    tables are not this rank's part."""
+    n_model = mesh.size(1)
+    _check_tables(cfg, n_model, "batched_step_fn")
     if mesh.get_coordinate() is None:
         raise ValueError(f"batched_step_fn: rank {dist.get_rank()} is not "
                          f"in the mesh {mesh.mesh.tolist()}")
+    shard = None if n_model == 1 else TableShard(
+        mesh.get_group("model"), mesh.get_local_rank("model"), n_model)
+    rows = (cfg.map_table_corner // n_model, cfg.map_table_surf // n_model)
 
     def f(state, xyz, mask):
         if not xyz.shape[0] == mask.shape[0] == state.odom.q_w.shape[0]:
@@ -105,7 +158,11 @@ def batched_step_fn(cfg: AloamConfig, mesh: DeviceMesh):
                 f"batched_step_fn: {xyz.shape[0]} scans and "
                 f"{mask.shape[0]} masks for {state.odom.q_w.shape[0]} "
                 f"local streams")
-        return pipeline.step_b(state, xyz, mask, cfg)
+        got = (state.map.corner.pts.shape[1], state.map.surf.pts.shape[1])
+        if got != rows:
+            raise ValueError(f"batched_step_fn: tables of {got} rows, this "
+                             f"rank's part is {rows}")
+        return pipeline.step_b(state, xyz, mask, cfg, shard=shard)
     return f
 
 

@@ -18,6 +18,7 @@ poses (4,) / (3,), metrics (16,)).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -185,11 +186,16 @@ def _step(state: SlamState, xyz: torch.Tensor, mask: torch.Tensor,
 
 
 def step_b(state: SlamState, xyz: torch.Tensor, mask: torch.Tensor,
-           cfg: AloamConfig):
+           cfg: AloamConfig, shard=None):
     """One frame of the whole pipeline for B streams: xyz (B, n_raw, 3),
     mask (B, n_raw). The map tables of ``state`` are updated in place.
-    Returns (new state, SlamOutputs)."""
-    return _step(state, xyz, mask, cfg, mp.mapping_step_b)
+    ``shard`` (``ops/gridmap.TableShard``): the state's tables are this
+    rank's part of tables partitioned over a group whose ranks all step
+    the same streams (``mapping.mapping_step_b``). Returns (new state,
+    SlamOutputs)."""
+    mapping = mp.mapping_step_b if shard is None \
+        else functools.partial(mp.mapping_step_b, shard=shard)
+    return _step(state, xyz, mask, cfg, mapping)
 
 
 def step(state: SlamState, xyz: torch.Tensor, mask: torch.Tensor,

@@ -4,6 +4,7 @@ Run from the repository root on a machine with a CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tables 4   # phase 11 (c) alone: NCCL, 4 cards
 
 It imports torch, numpy and the port (``aloam_tpu_torch``), and nothing
 of JAX or of the JAX package. Phases, each printing its own lines:
@@ -111,7 +112,21 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    streams get another ``lm_fused`` cluster plan than 16), each rank's
    scans/s and device busy time under torch.profiler beside the one
    process's; then ``sharded_knn`` over a (1, 2) mesh equal to the dense
-   knn, with the gloo exchange timed.
+   knn, with the gloo exchange timed. (c) The map tables split over
+   "model": two worker processes (``--table-worker``, gloo, the one card)
+   as a (1, 2) mesh, each holding half of every table of phase 6's 16
+   streams (the partition assert of ``parallel.dryrun.check_partition``
+   before and after), step the 8 frames with the kernels (launch counters
+   from 0, each of step_b's six must rise); both ranks' poses and
+   metrics equal each other and phase 6's bit for bit, and rank 0 steps
+   the same frames with the whole tables (``pipeline.step_b``): the
+   tables gathered by ``gather_tables`` equal them bit for bit. Rank 0's
+   ``merge_rows`` and ``assoc_cell`` inputs at frame 1 agree with their
+   plain versions, two launches bit-equal. Scans/s, each rank's table
+   MiB and the exchange ms a frame (every collective of the step timed
+   between two synchronizes, on a second pass). With ``--tables n`` the
+   script runs this phase alone over NCCL on a (1, n) mesh, a card a
+   rank, each rank held to step_b with whole tables on its own.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on the main path, worst error, kernel ms back to back, device
@@ -175,6 +190,8 @@ DIST_ATE_LIMIT_1, DIST_ATE_LIMIT_B = 0.12, 0.15
 # the time limit of its two worker processes
 KNN_Q, KNN_M = 4096, 36864
 WORKER_TIMEOUT_S = 420
+# phase 11 (c): the kernels whose inputs change with the table partition
+TABLE_KERNELS = ("assoc_cell", "merge_tiles")
 DIST_CACHE = os.path.join(
     CACHE_DIR, f"chip_smoke_dist_hdl64_a{N_AZIMUTH}_b{B}_f{N_FRAMES}.npz")
 DIST_SINGLE_CACHE = os.path.join(
@@ -1773,25 +1790,7 @@ def run_parallel(pipeline, mods, cfg, frames, outs_b, ms_b, busy_b,
     # (b) two gloo ranks sharing the card
     with tempfile.TemporaryDirectory() as tmp:
         np.savez(os.path.join(tmp, "knn.npz"), q=q, refs=refs, mask=mask)
-        with open(os.path.join(tmp, "card.txt"), "w") as fh:
-            fh.write(card)
-        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
-        try:
-            outs = distributed.spawn(
-                [sys.executable, os.path.abspath(__file__),
-                 "--parallel-worker", tmp], 2, env, WORKER_TIMEOUT_S)
-        except RuntimeError as e:
-            fail(f"[parallel] worker {e}")
-        for out in outs:
-            for line in out.splitlines():
-                say(line)
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
-                info = json.load(fh)
-            with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
-                info["outs"] = dict(z)
-            ranks.append(info)
+        ranks = run_workers("--parallel-worker", tmp, card, "[parallel]")
 
     def joined(run):
         return [{k: np.concatenate([rk["outs"][f"{run}.{k}_{fr}"]
@@ -1892,14 +1891,7 @@ def parallel_worker(tmp: str) -> None:
                                           gather_outputs, make_mesh,
                                           model_shard)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    distributed.initialize(backend="gloo")
-    size, rank = distributed.world()
-    device = torch.device(
-        "cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
-    torch.cuda.set_device(device)
-    with open(os.path.join(tmp, "card.txt")) as fh:
-        card = fh.read()
+    size, rank, device, card = start_worker(tmp)
     try:
         mods = {name: importlib.import_module(f"aloam_tpu_torch.ops.{spec[0]}")
                 for name, spec in KERNELS.items()}
@@ -1910,7 +1902,7 @@ def parallel_worker(tmp: str) -> None:
                    torch.from_numpy(mask[f, off:off + local]).to(device))
                   for f in range(N_FRAMES)]
         del xyz, mask
-        mesh = make_mesh(size, 1, "cuda")
+        mesh = make_mesh(size, 1, device.type)
         f = batched_step_fn(cfg, mesh)
         reset_counts(mods)
         torch.cuda.reset_peak_memory_stats(device)
@@ -1977,7 +1969,7 @@ def parallel_worker(tmp: str) -> None:
                 f"sharded step's frame 1 ({local} streams) agree with the "
                 f"plain versions; two launches on each bit-equal")
 
-        kmesh = make_mesh(1, size, "cuda")
+        kmesh = make_mesh(1, size, device.type)
         with np.load(os.path.join(tmp, "knn.npz")) as z:
             q, refs, rmask = (torch.from_numpy(z[k]).to(device)
                               for k in ("q", "refs", "mask"))
@@ -2008,6 +2000,253 @@ def parallel_worker(tmp: str) -> None:
             f"order, sharded_knn equal to the dense knn")
     finally:
         dist.destroy_process_group()
+
+
+def start_worker(tmp: str, backend: str = "gloo"):
+    """A worker's start: the process group from the environment, the card
+    of its LOCAL_RANK, and the card's description from ``tmp``. Returns
+    (world size, rank, device, card)."""
+    import torch
+    from aloam_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(backend=backend)
+    size, rank = distributed.world()
+    device = torch.device(
+        "cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    with open(os.path.join(tmp, "card.txt")) as fh:
+        return size, rank, device, fh.read()
+
+
+def run_workers(flag: str, tmp: str, card: str, tag: str, n: int = 2,
+                backend: str = "gloo") -> list:
+    """``n`` ranks of this script (``flag <tmp> <backend>``; gloo: all on
+    the first card, NCCL: card r for rank r) through
+    ``parallel.distributed.spawn``; prints their output lines and returns
+    each rank's rank<r>.json with its rank<r>.npz under "outs"."""
+    from aloam_tpu_torch.parallel import distributed
+    with open(os.path.join(tmp, "card.txt"), "w") as fh:
+        fh.write(card)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    try:
+        outs = distributed.spawn(
+            [sys.executable, os.path.abspath(__file__), flag, tmp, backend],
+            n, env, WORKER_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"{tag} worker {e}")
+    for out in outs:
+        for line in out.splitlines():
+            say(line)
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            info = json.load(fh)
+        with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+            info["outs"] = dict(z)
+        ranks.append(info)
+    return ranks
+
+
+def run_tables(outs_b, card, n: int = 2, backend: str = "gloo"):
+    """Phase 11 (c): phase 6's 16 streams over a (1, n) mesh of ranks
+    (gloo: two on the one card; NCCL: a card each), each holding 1/n of
+    every map table (``table_worker``). All ranks' poses and metrics must
+    equal each other and, where given, phase 6's ``outs_b`` bit for
+    bit."""
+    tag = f"[tables {backend} x{n}]"
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_workers("--table-worker", tmp, card, tag, n, backend)
+    for fr in range(N_FRAMES):
+        for k in POSE_KEYS:
+            a = ranks[0]["outs"][f"{k}_{fr}"]
+            for b in (rk["outs"][f"{k}_{fr}"] for rk in ranks[1:]):
+                if not np.array_equal(a, b):
+                    fail(f"{tag} frame {fr} {k}: the model ranks disagree "
+                         f"by {np.abs(a - b).max():.3g}")
+            if outs_b is not None and not np.array_equal(a, outs_b[fr][k]):
+                fail(f"{tag} frame {fr} {k} differs from [step] by "
+                     f"{np.abs(a - outs_b[fr][k]).max():.3g}")
+    one = B * 1e3 / float(np.mean(ranks[0]["whole_ms"][1:]))
+    for r, rk in enumerate(ranks):
+        ms = float(np.mean(rk["ms"][1:]))
+        say(f"{tag} rank {r}: {B * 1e3 / ms:.1f} scans/s ({ms:.2f} ms/frame "
+            f"over frames 1-{N_FRAMES - 1}) against {one:.1f} for step_b "
+            f"with whole tables on rank 0's card in the same worker; its "
+            f"tables {rk['part'] / 2 ** 20:.2f} MiB "
+            f"of {rk['whole'] / 2 ** 20:.2f}; the exchanges "
+            f"{rk['exchange_ms']:.3f} ms a frame ({rk['exchanges']:.0f} "
+            f"collectives, {rk['exchange_bytes'] / 1e6:.1f} MB a frame), "
+            f"of a {rk['timed_ms']:.2f} ms frame with them timed; peak "
+            f"device memory {rk['peak'] / 2 ** 30:.3f} GiB; launches "
+            f"{rk['launches']} ({card})")
+    said = "[step] and step_b" if outs_b is not None else "step_b"
+    say(f"{tag} the map tables split over {n} model ranks: {N_FRAMES} "
+        f"frames of {B} streams bit-equal to {said} with whole tables on "
+        f"every rank (poses and metrics), the gathered tables equal to "
+        f"step_b's ({card})")
+
+
+def table_worker(tmp: str, backend: str) -> None:
+    """One rank of phase 11 (c), run as ``chip_smoke.py --table-worker
+    <dir> <backend>`` with MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK
+    set: phase 6's 16 streams over a (1, world) mesh, this rank holding
+    1/world of every map table, with the kernels (host ms a frame; the
+    launch counters must
+    rise); the partition assert before and after; rank 0 runs the same
+    frames through ``pipeline.step_b`` with the whole tables and compares
+    the outputs and the gathered tables bit for bit; a second pass times
+    every collective of the step between two synchronizes; both ranks
+    drive frame 1 again while rank 0 records its ``merge_rows`` and
+    ``assoc_cell`` inputs, which it holds against the plain versions and
+    a second launch. Writes rank<r>.json and rank<r>.npz to ``dir``."""
+    import torch
+    import torch.distributed as dist
+    from aloam_tpu_torch import pipeline
+    from aloam_tpu_torch.ops import gridmap
+    from aloam_tpu_torch.parallel import (batched_init, batched_step_fn,
+                                          dryrun, gather_tables, make_mesh)
+
+    size, rank, device, card = start_worker(tmp, backend)
+    tag = f"[tables {backend} x{size}]"
+    try:
+        mods = {name: importlib.import_module(f"aloam_tpu_torch.ops.{spec[0]}")
+                for name, spec in KERNELS.items()}
+        cfg = bench_cfg()
+        xyz, mask, _ = make_streams(cfg)
+        frames = [(torch.from_numpy(xyz[f]).to(device),
+                   torch.from_numpy(mask[f]).to(device))
+                  for f in range(N_FRAMES)]
+        del xyz, mask
+        mesh = make_mesh(1, size, device.type)
+        f = batched_step_fn(cfg, mesh)
+
+        def fresh():
+            st = batched_init(cfg, B, device, mesh)
+            try:
+                part, whole = dryrun.check_partition(st, cfg, mesh, B)
+            except RuntimeError as e:
+                fail(f"{tag} rank {rank}: {e}")
+            return st, part, whole
+
+        reset_counts(mods)
+        torch.cuda.reset_peak_memory_stats(device)
+        dist.barrier()
+        st, part, whole = fresh()
+        ms, arrays = [], {}
+        for fr, (x, m) in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, out = f(st, x, m)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for k in POSE_KEYS:
+                arrays[f"{k}_{fr}"] = getattr(out, k).cpu().numpy()
+        peak = torch.cuda.max_memory_allocated(device)
+        launches = {n: launch_count(mods, n) for n in STEP_KERNELS}
+        if min(launches.values()) < 1:
+            fail(f"{tag} rank {rank}: a kernel was never launched: "
+                 f"{launches}")
+        try:
+            dryrun.check_partition(st, cfg, mesh, B)
+        except RuntimeError as e:
+            fail(f"{tag} rank {rank} after {len(frames)} frames: {e}")
+        tables = gather_tables(st, mesh).map
+        del st
+        whole_ms = []
+        if rank == 0:
+            outs, whole_ms, st_w = run_frames(pipeline.step_b, pipeline, cfg,
+                                              frames, device, B)
+            for fr, o in enumerate(outs):
+                for k in POSE_KEYS:
+                    if not np.array_equal(o[k], arrays[f"{k}_{fr}"]):
+                        fail(f"{tag} frame {fr} {k}: the split tables' step "
+                             f"differs from step_b with whole tables")
+            for kind in ("corner", "surf"):
+                for a, b in zip(getattr(tables, kind), getattr(st_w.map,
+                                                               kind)):
+                    if not torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)):
+                        fail(f"{tag} the gathered {kind} table differs from "
+                             f"step_b's whole table")
+            del st_w
+        del tables
+        dist.barrier()
+
+        # every collective of the step (gridmap._group_sum), timed
+        timed = {"ms": 0.0, "n": 0, "bytes": 0}
+        group_sum = gridmap._group_sum
+
+        def timed_sum(t, shard):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group_sum(t, shard)
+            torch.cuda.synchronize()
+            timed["ms"] += (time.perf_counter() - t0) * 1e3
+            timed["n"] += 1
+            timed["bytes"] += t.numel() * t.element_size()
+            return t
+        st, _, _ = fresh()
+        with Patched([(gridmap, "_group_sum", timed_sum)]):
+            frame_ms = []
+            for x, m in frames:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = f(st, x, m)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+        del st
+        n_fr = len(frames)
+
+        # frame 1's merge_rows and assoc_cell inputs on rank 0; both ranks
+        # drive the step, which exchanges rows
+        st, _, _ = fresh()
+        st, _ = f(st, *frames[0])
+        if rank == 0:
+            recorded = record_inputs(mods, TABLE_KERNELS,
+                                     lambda: f(st, *frames[1]))
+        else:
+            f(st, *frames[1])
+        del st
+        if rank == 0:
+            check_recorded(mods, recorded, {}, card)
+            check_repeatable(mods, recorded, f"{tag} rank 0")
+            say(f"{tag} rank 0: {len(recorded)} merge_rows / assoc_cell "
+                f"inputs of the split step's frame 1 agree with the plain "
+                f"versions; two launches on each bit-equal")
+        dist.barrier()
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(dict(ms=ms, whole_ms=whole_ms, peak=peak,
+                           launches=launches, part=part,
+                           whole=whole, exchange_ms=timed["ms"] / n_fr,
+                           exchanges=timed["n"] / n_fr,
+                           exchange_bytes=timed["bytes"] / n_fr,
+                           timed_ms=float(np.mean(frame_ms[1:]))), fh)
+        say(f"{tag} rank {rank} of {size} ({backend}, {device}): {B} "
+            f"streams, 1/{size} of every map table, {n_fr} frames; the "
+            f"partition holds")
+    finally:
+        dist.destroy_process_group()
+
+
+def tables_main(n: int) -> None:
+    """``chip_smoke.py --tables <n>``: phase 11 (c) alone over NCCL, one
+    card a rank, on n cards: the kernels built, the bench streams made,
+    then ``run_tables`` over a (1, n) mesh."""
+    import torch
+    from aloam_tpu_torch.ops import _build
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        fail(f"--tables {n}: needs {n} CUDA cards")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    cards = smi.stdout.strip().splitlines()
+    for line in cards:
+        say(line)
+    _build.build()
+    make_streams(bench_cfg())
+    run_tables(None, f"{len(cards)} x {cards[0]}", n, "nccl")
 
 
 def main() -> None:
@@ -2096,6 +2335,7 @@ def main() -> None:
     # ---- 11. streams and the kNN split over torch.distributed ranks -------
     run_parallel(pipeline, mods, cfg, frames, outs_b, ms_b, busy_b,
                  launches, knn_pts, device, card)
+    run_tables(outs_b, card)
 
     kernels = [dict(name=name, route="cuda", source=spec[3],
                     replaces=spec[4], launches=launches[name],
@@ -2117,5 +2357,9 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-worker"]:
         parallel_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--table-worker"]:
+        table_worker(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--tables"]:
+        tables_main(int(sys.argv[2]))
     else:
         main()

@@ -8,11 +8,19 @@ Run as ``python tests/_torch_mp_worker.py <mode> <dir>`` with
 * ``knn``: ``sharded_knn`` over a (1, world) mesh on every case of
   ``<dir>/knn_in.npz`` (query ``q<i>``, refs ``r<i>``, mask ``m<i>``);
   writes ``knn_out_<rank>.npz`` (``d<i>``, ``i<i>``, and ``refused``,
-  the error ``batched_step_fn`` raises on that mesh).
+  the error ``batched_step_fn`` raises on that mesh for a corner table
+  of world / 2 rows, which the model ranks do not divide).
 * ``step``: ``batched_step_fn`` over a (world, 1) mesh on this rank's
   streams of ``<dir>/step_in.npz`` (xyz (F, B, n, 3), mask (F, B, n)) at
   the tiny config; writes the gathered outputs of every frame to
   ``step_out_<rank>.npz``.
+* ``table``: ``batched_step_fn`` over a (world / 2, 2) mesh, each model
+  rank holding half of its data group's map tables, on the data group's
+  streams of ``<dir>/step_in.npz``; writes to ``table_out_<rank>.npz``
+  the data group's outputs of every frame (not gathered), the shapes of
+  the rank's table leaves, the whole tables (``gather_tables``) after
+  the last frame, and ``round_trip``: whether ``shard_tables`` of them
+  gives the rank's own part back.
 * ``mp``: an ``all_reduce`` of rank + 1 over the "data" axis, then one
   sharded step on this rank's own stream; prints ``MP_OK <rank> <sum>``.
 
@@ -33,9 +41,10 @@ import torch.distributed as dist  # noqa: E402
 from aloam_tpu_torch.config import AloamConfig  # noqa: E402
 from aloam_tpu_torch.io import synthetic as syn  # noqa: E402
 from aloam_tpu_torch.parallel import (  # noqa: E402
-    batched_init, batched_step_fn, distributed, gather_outputs, make_mesh,
-    model_shard, sharded_knn)
+    batched_init, batched_step_fn, distributed, gather_outputs,
+    gather_tables, make_mesh, model_shard, shard_tables, sharded_knn)
 
+OUTPUTS = ("q_odom", "t_odom", "q_map", "t_map", "q_hf", "t_hf", "metrics")
 # tests/test_sharding.py's tiny config
 CFG = AloamConfig(
     scan_lines=16, minimum_range=0.3,
@@ -50,8 +59,8 @@ def run_knn(d: str, size: int, rank: int) -> None:
     mesh = make_mesh(1, size, "cpu")
     out = {}
     try:
-        batched_step_fn(CFG, mesh)
-    except ValueError as e:       # the map tables are not split over "model"
+        batched_step_fn(CFG.replace(map_table_corner=size // 2), mesh)
+    except ValueError as e:       # the table does not split over "model"
         out["refused"] = np.array(str(e))
     knn = sharded_knn(mesh, k=5)
     with np.load(os.path.join(d, "knn_in.npz")) as z:
@@ -74,10 +83,39 @@ def run_step(d: str, size: int, rank: int) -> None:
         st, o = step(st, torch.from_numpy(xyz[f, off:off + local]),
                      torch.from_numpy(mask[f, off:off + local]))
         g = gather_outputs(o, mesh)
-        for name in ("q_odom", "t_odom", "q_map", "t_map", "q_hf", "t_hf",
-                     "metrics"):
+        for name in OUTPUTS:
             out[f"{name}_{f}"] = getattr(g, name).numpy()
     np.savez(os.path.join(d, f"step_out_{rank}.npz"), **out)
+
+
+def run_table(d: str, size: int, rank: int) -> None:
+    mesh = make_mesh(size // 2, 2, "cpu")
+    with np.load(os.path.join(d, "step_in.npz")) as z:
+        xyz, mask = z["xyz"], z["mask"]
+    local = xyz.shape[1] // mesh.size(0)
+    off = mesh.get_local_rank("data") * local
+    step = batched_step_fn(CFG, mesh)
+    st = batched_init(CFG, local, "cpu", mesh)
+    out = {}
+    for f in range(xyz.shape[0]):
+        st, o = step(st, torch.from_numpy(xyz[f, off:off + local]),
+                     torch.from_numpy(mask[f, off:off + local]))
+        for name in OUTPUTS:
+            out[f"{name}_{f}"] = getattr(o, name).numpy()
+    whole = gather_tables(st, mesh)
+    back = shard_tables(whole, mesh).map
+    out["round_trip"] = np.array(all(
+        torch.equal(a, b)
+        for g, h in ((st.map.corner, back.corner), (st.map.surf, back.surf))
+        for a, b in zip(g, h)))
+    whole = whole.map
+    for kind in ("corner", "surf"):
+        for leaf in ("pts", "aux"):
+            out[f"shape_{kind}_{leaf}"] = np.array(
+                getattr(getattr(st.map, kind), leaf).shape)
+            out[f"{kind}_{leaf}"] = getattr(getattr(whole, kind),
+                                            leaf).numpy()
+    np.savez(os.path.join(d, f"table_out_{rank}.npz"), **out)
 
 
 def run_mp(size: int, rank: int) -> None:
@@ -113,6 +151,8 @@ def main() -> None:
             run_knn(d, size, rank)
         elif mode == "step":
             run_step(d, size, rank)
+        elif mode == "table":
+            run_table(d, size, rank)
         elif mode == "mp":
             run_mp(size, rank)
         else:

@@ -11,7 +11,10 @@ limit, and a worker that exits non-zero fails the test with its stderr.
 Tolerances: d2 at rtol 1e-4 / atol 1e-5 (JAX's own, tests/test_sharding.py)
 and indices exact; the sharded step within 3e-4 of the unsharded one
 (JAX's contract for its sharded step, tests/test_sharding.py), and against
-JAX's ``step_b`` at tests/test_torch_mapping.py's step_b bounds.
+JAX's ``step_b`` at tests/test_torch_mapping.py's step_b bounds. With the
+map tables split over "model" the step is bit-equal to the unsharded one
+(outputs and tables), and held against JAX's ``batched_step_fn`` on the
+same mesh at those bounds.
 """
 
 import dataclasses
@@ -30,6 +33,8 @@ from aloam_tpu import config as jconfig
 from aloam_tpu import neighbors as jnb
 from aloam_tpu import pipeline as jpipe
 from aloam_tpu.io import synthetic as syn
+from aloam_tpu.parallel import batched_init as j_batched_init
+from aloam_tpu.parallel import batched_step_fn as j_batched_step_fn
 from aloam_tpu.parallel import make_mesh as j_make_mesh
 from aloam_tpu.parallel import sharded_knn as j_sharded_knn
 from aloam_tpu_torch import neighbors as nb
@@ -37,7 +42,7 @@ from aloam_tpu_torch import pipeline as tp
 from aloam_tpu_torch.parallel import batched_step_jit, distributed, make_mesh
 from aloam_tpu_torch.parallel.dryrun import dryrun_multichip
 
-from _torch_mp_worker import CFG
+from _torch_mp_worker import CFG, OUTPUTS
 
 torch.set_num_threads(1)
 
@@ -157,8 +162,8 @@ def test_sharded_knn_matches_jax_and_dense(shards, tmp_path):
     same d2 (rtol 1e-4 / atol 1e-5 against JAX, equal to the dense knn)
     and the same indices, exactly, also with ties across shard
     boundaries, a fully masked shard and fewer than k valid refs. On
-    those (1, n) meshes batched_step_fn refuses to run, naming the ROADMAP
-    item of the model-axis table partition."""
+    those (1, n) meshes batched_step_fn refuses a corner table of n / 2
+    rows, which the n model ranks do not divide."""
     if len(jax.devices()) < shards:
         pytest.skip(f"needs {shards} JAX devices")
     cases = [_knn_case(c) for c in KNN_CASES]
@@ -168,7 +173,8 @@ def test_sharded_knn_matches_jax_and_dense(shards, tmp_path):
     _spawn("knn", shards, tmp_path)
     for rank in range(shards):
         with np.load(tmp_path / f"knn_out_{rank}.npz") as z:
-            assert "the model-axis table partition" in str(z["refused"])
+            assert "model ranks do not divide map_table_corner" in str(
+                z["refused"])
     jknn = j_sharded_knn(j_make_mesh(1, shards), k=K)
     for i, (name, (q, r, m)) in enumerate(zip(KNN_CASES, cases)):
         jd, ji = jknn(jnp.asarray(q), jnp.asarray(r), jnp.asarray(m))
@@ -249,6 +255,92 @@ def test_sharded_step_matches_unsharded_and_jax(tmp_path):
     print(f"max |sharded - unsharded| over poses and metrics: {worst:.3e}")
 
 
+EXACT = ("n_sharp", "n_flat", "n_less_sharp", "n_less_flat", "map_solved")
+JAX_BOUNDS = (("q_odom", 2e-3), ("t_odom", 5e-3), ("q_map", 2.5e-2),
+              ("t_map", 2.5e-2), ("q_hf", 2.5e-2), ("t_hf", 2.5e-2))
+
+
+@pytest.fixture(scope="module")
+def whole_step():
+    """The port's unsharded step_b over 4 streams and 3 frames: (xyz,
+    mask, per-frame outputs as numpy dicts, the final state)."""
+    xyz, mask = _streams(4, 3)
+    st = tp.init_state(CFG, 4, "cpu")
+    outs = []
+    for f in range(3):
+        st, o = tp.step_b(st, torch.from_numpy(xyz[f]),
+                          torch.from_numpy(mask[f]), CFG)
+        outs.append({n: getattr(o, n).numpy() for n in OUTPUTS})
+    return xyz, mask, outs, st
+
+
+@pytest.mark.parametrize("n_data", [1, 2])
+def test_sharded_step_model_axis_matches_whole_and_jax(n_data, whole_step,
+                                                       tmp_path):
+    """batched_step_fn over an (n_data, 2) mesh of gloo ranks, each model
+    rank holding half of its data group's map tables, 4 streams and 3
+    frames. Every rank's table leaves are (4 / n_data, H / 2, ·), and
+    shard_tables of the gathered tables gives them back; the two
+    model ranks of a data group return the same outputs bit for bit every
+    frame; the data groups' outputs, joined, and the tables gathered by
+    gather_tables are the unsharded step_b's bit for bit; and the outputs
+    hold against JAX's batched_step_fn on make_mesh(n_data, 2) of the
+    virtual CPU devices at tests/test_torch_mapping.py's bounds (q_odom /
+    t_odom 2e-3 / 5e-3, the map and high-frequency poses 2.5e-2; feature
+    counts and map_solved exact)."""
+    if len(jax.devices()) < 2 * n_data:
+        pytest.skip(f"needs {2 * n_data} JAX devices")
+    xyz, mask, want, st = whole_step
+    np.savez(tmp_path / "step_in.npz", xyz=xyz, mask=mask)
+    _spawn("table", 2 * n_data, tmp_path)
+    outs = [dict(np.load(tmp_path / f"table_out_{r}.npz"))
+            for r in range(2 * n_data)]
+    local = 4 // n_data
+    for r, o in enumerate(outs):
+        assert o.pop("round_trip"), r
+        for kind, h in (("corner", CFG.map_table_corner),
+                        ("surf", CFG.map_table_surf)):
+            for leaf in ("pts", "aux"):
+                width = getattr(getattr(st.map, kind), leaf).shape[-1]
+                assert o[f"shape_{kind}_{leaf}"].tolist() == [
+                    local, h // 2, width], (r, kind, leaf)
+    for d in range(n_data):
+        a, b = outs[2 * d], outs[2 * d + 1]
+        for name in a:
+            np.testing.assert_array_equal(a[name], b[name], f"{d} {name}")
+    for name in OUTPUTS:
+        for f in range(3):
+            np.testing.assert_array_equal(
+                np.concatenate([outs[2 * d][f"{name}_{f}"]
+                                for d in range(n_data)]),
+                want[f][name], f"{name} {f}")
+    for kind in ("corner", "surf"):
+        for leaf in ("pts", "aux"):
+            got = np.concatenate([outs[2 * d][f"{kind}_{leaf}"]
+                                  for d in range(n_data)])
+            whole = getattr(getattr(st.map, kind), leaf)
+            np.testing.assert_array_equal(
+                got.view(np.int32), whole.numpy().view(np.int32),
+                f"{kind} {leaf}")
+
+    jstep = j_batched_step_fn(JCFG, j_make_mesh(n_data, 2))
+    jst = j_batched_init(JCFG, 4)
+    for f in range(3):
+        jst, jout = jstep(jst, jnp.asarray(xyz[f]), jnp.asarray(mask[f]))
+        for name, atol in JAX_BOUNDS:
+            np.testing.assert_allclose(want[f][name],
+                                       np.asarray(getattr(jout, name)),
+                                       atol=atol, err_msg=f"{name} {f}")
+        got_m = dict(zip(tp.METRIC_NAMES, want[f]["metrics"].T))
+        want_m = dict(zip(jpipe.METRIC_NAMES, np.asarray(jout.metrics).T))
+        for name in EXACT:
+            np.testing.assert_array_equal(got_m[name], want_m[name],
+                                          err_msg=f"{name} {f}")
+    shards = {s.data.shape for s in jst.map.surf.pts.addressable_shards}
+    assert shards == {(local, CFG.map_table_surf // 2,
+                       st.map.surf.pts.shape[-1])}
+
+
 def test_two_process_runtime():
     """The counterpart of tests/test_multiprocess.py: two OS processes
     rendezvous through distributed.initialize() from MASTER_ADDR /
@@ -268,9 +360,9 @@ def test_distributed_helpers_single_process(monkeypatch):
     tables as they were (donate=True consumes them); in a world of one
     gloo rank, a second initialize() does nothing, global_mesh gives a
     (1, 1) mesh, and meshes the world cannot hold raise.
-    (batched_step_fn's refusal of n_model > 1 needs two ranks:
-    test_sharded_knn_matches_jax_and_dense checks it on its (1, n)
-    meshes.)"""
+    (batched_step_fn's refusal of a table that n_model does not divide
+    needs two ranks: test_sharded_knn_matches_jax_and_dense checks it on
+    its (1, n) meshes.)"""
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
     distributed.initialize()
@@ -343,3 +435,21 @@ def test_dryrun_multichip(monkeypatch, capsys):
                  "dryrun_multichip OK: mesh=(2 data x 1 model), batch=4"):
         assert line in out, out
     assert "max |sharded - unsharded| = 0.00e+00 m" in out, out
+    assert "map tables partitioned OK" in out, out
+
+
+def test_dryrun_multichip_model_axis(monkeypatch):
+    """dryrun_multichip over 4 gloo ranks: JAX's mesh choice, (2 data x 2
+    model), each model rank holding half of its group's map tables (the
+    partition assert on every rank, and its line), trajectories equal to
+    the unsharded step, and sharded_knn over (1, 4)."""
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = dryrun_multichip(4, "cpu", timeout=_TIMEOUT)
+    for line in ("map tables partitioned OK: ",
+                 "MiB total / 4 devices)",
+                 "trajectory match OK: frames=3, streams=4",
+                 "max |sharded - unsharded| = 0.00e+00 m",
+                 "sharded knn OK: mesh=(1 data x 4 model)",
+                 "dryrun_multichip OK: mesh=(2 data x 2 model), batch=4"):
+        assert line in out, out
