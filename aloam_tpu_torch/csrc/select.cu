@@ -358,11 +358,15 @@ extern "C" int aloam_select_rings(const float* curv, const int* bcum,
                thr == thr ? ord_key(thr) + 1 : INT_MAX,
                thr == thr ? ord_key(thr) - 1 : INT_MIN};
   const size_t smem = row_bytes(c);
-  if (smem > 48 * 1024) {
+  // raised once per larger size, so a launch captured into a CUDA graph
+  // after a warm-up at its size makes no attribute call
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
     const cudaError_t e = cudaFuncSetAttribute(
         select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
+    granted = smem;
   }
   const int warps = n_regions > 0 ? n_regions : 1;
   select_kernel<<<rows, 32 * warps, smem,

@@ -14,7 +14,12 @@ _EPS = 1e-12
 
 
 def qidentity(device=None, dtype=torch.float32) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    """A fresh identity quaternion, made on ``device`` by device operations
+    (no host copy, so a CUDA graph capture can run it; fresh, so no state
+    leaf built from it aliases another)."""
+    q = torch.zeros(4, dtype=dtype, device=device)
+    q[:1].fill_(1.0)      # q[0] = 1.0 would copy a host scalar
+    return q
 
 
 def qmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

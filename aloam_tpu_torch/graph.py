@@ -1,0 +1,221 @@
+"""Captured CUDA graphs of the SLAM step: the port's counterpart of the
+JAX package's ``jax.jit`` with a donated state (``pipeline.make_step_fn``,
+``parallel.batched_step_jit``) and of its one-program ``lax.scan``
+(``pipeline.run_sequence(scan=True)``).
+
+A :class:`StepGraph` binds one step function (``pipeline.step`` or
+``step_b`` with its config). For each set of shapes and device it keeps a
+static state and static input stacks (a *slot*), and in a slot one
+captured ``torch.cuda.CUDAGraph`` per pattern of the mapping gate over the
+frames it steps. A call copies the frames into the static inputs, replays
+the graph on the device's current stream, and clones the outputs out of
+the graph's memory pool, so that the next replay cannot overwrite them
+(JAX returns fresh arrays). Every kernel of the step launches inside the
+graph: the wrappers put their launches on the current stream, which is the
+capture stream while a graph is captured.
+
+* **Donation.** With ``donate=True`` a slot's first state becomes its
+  static state: the map tables are adopted as they are (the step updates
+  them in place, at fixed addresses, as a graph needs), every other leaf
+  is copied into a buffer of the slot's own. The state passed in is
+  consumed, as JAX's donated state is. A call returns the static state,
+  and that state passed back in steps with no copy; any other state (a
+  resumed checkpoint, a fresh ``init_state``) is copied into the static
+  buffers first. So a state that the function returned is valid until its
+  next call. With ``donate=False`` every call copies the caller's state in
+  and returns a copy of the static state: the caller's state stays usable.
+* **The body** runs the step over the frames, copies each frame's outputs
+  into (F, ...) stacks, then copies every leaf of the new state into its
+  static leaf (:func:`copy_into`: a leaf that is the static leaf itself is
+  skipped, one that aliases a static leaf is staged first).
+* **Capture.** Before a capture, one eager frame of each gate branch runs
+  on a clone of the static state, on a side stream: it builds the kernels,
+  makes the cached constants, raises the kernels' shared-memory limits
+  and warms the allocator, and leaves the real state alone. The capture
+  itself runs nothing on the device. A capture or a replay that fails
+  raises; nothing falls back to eager.
+* **The mapping gate.** ``state.frame`` stays a host int, and
+  ``pipeline._gated_mapping`` chooses on the host (``pipeline.maps_at``),
+  so each pattern of the gate over a call's frames has its own graph: two
+  for one frame with a ``mapping_skip_frame`` above 1 (JAX's
+  ``lax.cond``), one with 1.
+* **On CPU tensors** the same body runs eagerly on the same static
+  buffers, with no graph: the tests' path.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+
+captures = 0    # graphs captured, counted on the host
+replays = 0     # graph replays
+
+
+def _tensors(tree) -> list:
+    """The tensor leaves of a tree of tuples, depth first (ints and None
+    left out)."""
+    if isinstance(tree, tuple):
+        return [x for sub in tree for x in _tensors(sub)]
+    return [tree] if torch.is_tensor(tree) else []
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensor leaves taken in order from ``leaves``."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_rebuild(sub, leaves) for sub in tree))
+    return next(leaves) if torch.is_tensor(tree) else tree
+
+
+def _cloned(tree):
+    return _rebuild(tree, iter([t.clone() for t in _tensors(tree)]))
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` are the same elements of the same memory."""
+    return a.device == b.device and a.data_ptr() == b.data_ptr() \
+        and a.dtype == b.dtype and a.shape == b.shape \
+        and a.stride() == b.stride()
+
+
+def copy_into(dst: list, src: list) -> None:
+    """``dst[i]`` takes ``src[i]``'s values for every i, as if every source
+    were read before any destination is written: a source that is its
+    destination itself is skipped, and one that shares memory with any
+    destination (a view of a static leaf, a leaf passed through) is
+    cloned before the first copy."""
+    owned = {d.untyped_storage().data_ptr() for d in dst}
+    todo = []
+    for d, s in zip(dst, src, strict=True):
+        if _same(d, s):
+            continue
+        if s.untyped_storage().data_ptr() in owned:
+            s = s.clone()
+        todo.append((d, s))
+    for d, s in todo:
+        d.copy_(s)
+
+
+def _key(state, xyz: torch.Tensor, mask: torch.Tensor) -> tuple:
+    """What a slot is made for: every leaf's shape, dtype and device."""
+    return tuple((tuple(t.shape), t.dtype, t.device)
+                 for t in _tensors(state) + [xyz, mask])
+
+
+class _Slot:
+    """A static state and static (F, ...) input stacks for one key."""
+
+    def __init__(self, state, xyz: torch.Tensor, mask: torch.Tensor,
+                 adopt: bool):
+        tables = {id(t) for g in (state.map.corner, state.map.surf)
+                  for t in g} if adopt else set()
+        self.state = _rebuild(state, iter([
+            t if id(t) in tables else t.clone(
+                memory_format=torch.contiguous_format)
+            for t in _tensors(state)]))
+        self.xyz = torch.empty_like(xyz, memory_format=torch.contiguous_format)
+        self.mask = torch.empty_like(mask,
+                                     memory_format=torch.contiguous_format)
+        self.graphs: dict = {}         # gate pattern -> Captured
+
+    def holds(self, state) -> bool:
+        return all(_same(a, b) for a, b in zip(_tensors(state),
+                                               _tensors(self.state)))
+
+
+class Captured(NamedTuple):
+    """One captured graph, the outputs it writes (in its pool), and the
+    host milliseconds its capture and its instantiation took."""
+    graph: torch.cuda.CUDAGraph
+    outputs: tuple
+    capture_ms: float
+    instantiate_ms: float
+
+
+class StepGraph:
+    """``step(state, xyz, mask) -> (state, outputs)`` run as a captured
+    CUDA graph on a CUDA state, eagerly on a CPU one (see the module
+    docstring). ``gate(frame)`` is the step's host-side branch at a frame
+    (``pipeline.maps_at`` with the config bound)."""
+
+    def __init__(self, step, gate, donate: bool = True):
+        self.step, self.gate, self.donate = step, gate, donate
+        self.slots: dict = {}
+
+    def __call__(self, state, xyz: torch.Tensor, mask: torch.Tensor):
+        """One frame: (new state, outputs)."""
+        new, outs = self.run(state, xyz[None], mask[None])
+        return new, _rebuild(outs, iter([o[0] for o in _tensors(outs)]))
+
+    def run(self, state, xyz_seq: torch.Tensor, mask_seq: torch.Tensor):
+        """The step over every frame of (F, ...) input stacks from
+        ``state``: (the state after them, the outputs stacked along a
+        leading frame axis). On a CUDA state all F frames are one graph,
+        replayed once."""
+        key = _key(state, xyz_seq, mask_seq)
+        slot = self.slots.get(key)
+        if slot is None:
+            slot = self.slots[key] = _Slot(state, xyz_seq, mask_seq,
+                                           self.donate)
+        elif not (self.donate and slot.holds(state)):
+            copy_into(_tensors(slot.state), _tensors(state))
+        slot.xyz.copy_(xyz_seq)
+        slot.mask.copy_(mask_seq)
+        n = xyz_seq.shape[0]
+        if slot.xyz.is_cuda:
+            pattern = tuple(self.gate(state.frame + f) for f in range(n))
+            cap = slot.graphs.get(pattern)
+            if cap is None:
+                cap = slot.graphs[pattern] = self._capture(slot, state.frame,
+                                                           pattern)
+            cap.graph.replay()
+            global replays
+            replays += 1
+            outs = _cloned(cap.outputs)
+        else:
+            outs = self._body(slot, state.frame)
+        new = slot.state._replace(frame=state.frame + n)
+        return (new if self.donate else _cloned(new)), outs
+
+    def _body(self, slot: _Slot, frame0: int):
+        """What the graph runs: the step over the static input stacks from
+        the static state, each frame's outputs copied into stacks, then
+        the new state copied into the static state. Returns the stacks."""
+        n = slot.xyz.shape[0]
+        st, stacks = slot.state._replace(frame=frame0), None
+        for f in range(n):
+            st, out = self.step(st, slot.xyz[f], slot.mask[f])
+            if stacks is None:
+                stacks = _rebuild(out, iter([o.new_empty((n,) + o.shape)
+                                             for o in _tensors(out)]))
+            for s, o in zip(_tensors(stacks), _tensors(out), strict=True):
+                s[f].copy_(o)
+        copy_into(_tensors(slot.state), _tensors(st))
+        return stacks
+
+    def _capture(self, slot: _Slot, frame0: int, pattern: tuple) -> Captured:
+        """Warm up each gate branch of ``pattern`` on a clone of the static
+        state on a side stream, then capture :meth:`_body`."""
+        dev = slot.xyz.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for branch in dict.fromkeys(pattern):
+                    f = pattern.index(branch)
+                    warm = _cloned(slot.state)._replace(frame=frame0 + f)
+                    self.step(warm, slot.xyz[f], slot.mask[f])
+                    del warm
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph):
+                outputs = self._body(slot, frame0)
+            t1 = time.perf_counter()
+            graph.instantiate()
+            t2 = time.perf_counter()
+        global captures
+        captures += 1
+        return Captured(graph, outputs, (t1 - t0) * 1e3, (t2 - t1) * 1e3)

@@ -24,6 +24,7 @@ place.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -93,9 +94,17 @@ def state_from_numpy(tree, device) -> MapState:
                     t_w=t(tree.t_w))
 
 
+@functools.cache
+def _cells_const(cells: tuple, device) -> torch.Tensor:
+    """An int32 (3,) constant, made once per (value, device): the step
+    calls it every frame, and a host-to-device copy cannot be captured
+    into a CUDA graph (the warm-up frame before a capture makes it)."""
+    return torch.tensor(cells, dtype=torch.int32, device=device)
+
+
 def _cells(half_m, cfg: AloamConfig, device) -> torch.Tensor:
-    return torch.as_tensor(np.ceil(np.asarray(half_m) / cfg.knn_cell),
-                           dtype=torch.int32, device=device)
+    cells = np.ceil(np.asarray(half_m) / cfg.knn_cell).astype(np.int32)
+    return _cells_const(tuple(cells.tolist()), device)
 
 
 def _window_cells(cfg: AloamConfig, device=None) -> torch.Tensor:

@@ -31,6 +31,7 @@ every rank of the group.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -167,7 +168,11 @@ def _vox_id(pts: torch.Tensor, leaf: float) -> torch.Tensor:
     return _mix(v[..., 0], v[..., 1], v[..., 2])
 
 
+@functools.cache
 def _offsets8(device=None) -> torch.Tensor:
+    """The (8, 3) int32 offsets of a 2×2×2 cell block, made once per
+    device: a hash calls it several times a frame, and a host-to-device
+    copy cannot be captured into a CUDA graph."""
     g = np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
                  -1).reshape(8, 3)
     return torch.as_tensor(g, dtype=torch.int32, device=device)

@@ -31,12 +31,15 @@ The reference's only concurrency is three OS processes on one machine
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from aloam_tpu_torch import pipeline
 from aloam_tpu_torch.config import AloamConfig
+from aloam_tpu_torch.graph import StepGraph
 from aloam_tpu_torch.neighbors import knn, smallest_k
 from aloam_tpu_torch.ops.gridmap import TableShard
 from aloam_tpu_torch.parallel.distributed import world
@@ -115,18 +118,16 @@ def gather_tables(state: pipeline.SlamState,
 
 
 def batched_step_jit(cfg: AloamConfig, donate: bool = True):
-    """``pipeline.step_b`` with the config bound: f(state, xyz (B, n_raw,
-    3), mask (B, n_raw)) -> (state, SlamOutputs), on one device with no
-    mesh. PyTorch runs eagerly, so nothing is compiled; the name is the
-    JAX package's. ``step_b`` updates the map tables in place, which
-    consumes the state passed in as JAX's donated state is consumed; with
-    ``donate=False`` the step works on clones of the tables and the
-    caller's state stays usable, as JAX's undonated input does."""
-    def f(state, xyz, mask):
-        if not donate:
-            state = _map_tables(state, torch.clone)
-        return pipeline.step_b(state, xyz, mask, cfg)
-    return f
+    """``pipeline.step_b`` with the config bound, on one device with no
+    mesh: f(state, xyz (B, n_raw, 3), mask (B, n_raw)) -> (state,
+    SlamOutputs), the JAX package's jitted ``step_b``. On a CUDA state it
+    replays a captured CUDA graph of ``step_b`` (``graph.StepGraph``); on a
+    CPU state the same body runs eagerly. With ``donate=True`` the state
+    passed in is consumed, as JAX's donated state is; with
+    ``donate=False`` the caller's state stays usable, as JAX's undonated
+    input does."""
+    return StepGraph(lambda s, x, m: pipeline.step_b(s, x, m, cfg),
+                     functools.partial(pipeline.maps_at, cfg), donate)
 
 
 def batched_step_fn(cfg: AloamConfig, mesh: DeviceMesh):
@@ -138,7 +139,9 @@ def batched_step_fn(cfg: AloamConfig, mesh: DeviceMesh):
     (:func:`batched_init` with the mesh, or :func:`shard_tables`). The
     outputs are the data group's (:func:`gather_outputs` assembles the
     global ones), the same on every rank of the model group. The map
-    tables update in place, as in ``pipeline.step_b``.
+    tables update in place, as in ``pipeline.step_b``. It runs eagerly:
+    gloo's collectives cannot be captured into a CUDA graph, and the
+    capture of the NCCL path is not done yet.
 
     Raises ``ValueError`` unless n_model divides both table sizes (as the
     JAX package asserts), on a rank outside the mesh, and on a state whose

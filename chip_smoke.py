@@ -78,7 +78,9 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    run as in phase 6, and the odometry and mapped ATE (< 0.5 m);
 9. cli: ``aloam_tpu_torch.cli.main`` over 4 synthetic HDL-64 frames with a
    checkpoint every 2, its eval.json and metrics.jsonl read back, and a
-   run resumed from the frame-2 checkpoint must give frame 3's pose;
+   run resumed from the frame-2 checkpoint must give frame 3's pose; both
+   runs step through the graphed ``make_step_fn`` (one capture a run, a
+   replay a frame);
 10. distortion: the motion-distortion path (``cfg.distortion``) on
    motion-distorted scenes (``make_distorted_sequence``, 8 frames,
    accelerating at 12 m/s² and turning at 0.3 rad/s): B = 16 streams
@@ -126,7 +128,27 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    MiB and the exchange ms a frame (every collective of the step timed
    between two synchronizes, on a second pass). With ``--tables n`` the
    script runs this phase alone over NCCL on a (1, n) mesh, a card a
-   rank, each rank held to step_b with whole tables on its own.
+   rank, each rank held to step_b with whole tables on its own;
+12. graph: the compiled step (``aloam_tpu_torch/graph.py``, CUDA graphs).
+   (a) One eager frame of step_b (B = 16) and one of step under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host synchronization.
+   (b) ``parallel.batched_step_jit`` over phase 6's 16 streams and 8
+   frames: the outputs of every frame, kept on the card until the end,
+   and the final tables bit-equal to phase 6's eager kernel run; one
+   capture, whose body launched each of step_b's six kernels as often as
+   one eager frame does, and 8 replays. (c) ``pipeline.make_step_fn`` over
+   phase 8's frames, bit-equal to phase 8, then 4 frames at
+   ``mapping_skip_frame`` 2 (two graphs, one a gate branch) bit-equal to
+   the eager step. (d) ``pipeline.run_sequence(scan=True)`` over the same
+   8 frames: one graph of all 8, one replay, bit-equal to (c); capture
+   and instantiate ms, node count (cuGraphGetNodes), the graph pool's MiB
+   and the peak memory. (e) The distorted step_b graphed over 4 of phase
+   10's frames, bit-equal to phase 10's eager run, ``lm_fused_s`` inside
+   the capture. (g) Eager and graphed step_b (scans/s) and step (ms/scan)
+   in turn three times; a graphed frame's device busy time and idle
+   share under torch.profiler, the replay alone back to back, the host
+   ms to issue a frame (graphed and eager) and the peak memory. Its run
+   time is printed.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on the main path, worst error, kernel ms back to back, device
@@ -1474,9 +1496,10 @@ def run_step(pipeline, mods, cfg, frames, gt, device, card):
 
 def run_single(pipeline, mods, cfg, frames, gt, device, card):
     """Phase 8: the single-stream step with the kernels and with the plain
-    versions. Returns the launches of the kernel run."""
+    versions. Returns the launches of the kernel run, its outputs and its
+    final map tables (corner, surf)."""
     from aloam_tpu_torch.pipeline import METRIC_NAMES
-    k_outs, k_ms, p_outs, p_ms, launches, _, peak = kernel_and_plain(
+    k_outs, k_ms, p_outs, p_ms, launches, st, peak = kernel_and_plain(
         "single", pipeline.step, pipeline, mods, SINGLE_KERNELS, cfg, frames,
         device, 1)
     pose_agreement("single", k_outs, p_outs, k_ms, p_ms, 1)
@@ -1494,12 +1517,14 @@ def run_single(pipeline, mods, cfg, frames, gt, device, card):
     if last["map_solved"] != 1:
         fail("single-stream mapping did not solve")
     ate_check("single", k_outs, gt[None], 1)
-    return launches
+    return launches, k_outs, (st.map.corner, st.map.surf)
 
 
 def run_cli(device, card):
     """Phase 9: the CLI end to end on the card, and a resumed run."""
     from aloam_tpu_torch import cli
+    from aloam_tpu_torch import graph as gm
+    gm.captures = gm.replays = 0
     with tempfile.TemporaryDirectory() as tmp:
         out, res = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
         base = ["--device", str(device), "--preset", "HDL-64", "--synthetic"]
@@ -1528,6 +1553,11 @@ def run_cli(device, card):
             f"state_000002.npz: frame 3 pose max |diff| {d:.3g} ({card})")
         if d > 1e-6:
             fail("cli: the resumed run does not reach the same frame 3 pose")
+        # make_step_fn: one capture a run, a replay a frame (4 + 2)
+        say(f"[cli] through the graphed make_step_fn: {gm.captures} "
+            f"captures, {gm.replays} replays")
+        if (gm.captures, gm.replays) != (2, 6):
+            fail("cli: the runs did not go through one graph each")
 
 
 def check_distorted_kernel(pipeline, mods, cfg_b, frames, cfg_1, single,
@@ -1627,7 +1657,7 @@ def distortion_gates(tag, d_outs, r_outs, gt, batch, ate_limit):
 
 def run_distortion(pipeline, mods, cfg_b, cfg_1, device, results, card):
     """Phase 10: the distortion path. Returns the distorted step_b's
-    launches."""
+    launches, and its config, frames and kernel run's outputs."""
     import torch
     dcfg_b, dcfg_1 = (c.replace(distortion=True) for c in (cfg_b, cfg_1))
     t0 = time.perf_counter()
@@ -1663,6 +1693,8 @@ def run_distortion(pipeline, mods, cfg_b, cfg_1, device, results, card):
             tag, step, pipeline, mods, names, cfg, data, device, batch)
         del st            # its map tables must not count in the next peak
         launches[tag] = got
+        if tag == "dist_step":
+            dist = (cfg, data, k_outs)
         pose_agreement(tag, k_outs, p_outs, k_ms, p_ms, batch)
         sk, sp = float(np.mean(k_ms[1:])), float(np.mean(p_ms[1:]))
         say(f"[{tag}] frames 1-{len(data) - 1}: kernels {sk:.2f} ms/frame "
@@ -1676,7 +1708,7 @@ def run_distortion(pipeline, mods, cfg_b, cfg_1, device, results, card):
         r_outs = run_frames(step, pipeline, cfg_rigid, data, device,
                             batch)[0]
         distortion_gates(tag, k_outs, r_outs, truth, batch, ate_limit)
-    return launches["dist_step"]
+    return launches["dist_step"], dist
 
 def knn_points(map_state, cfg):
     """(queries (KNN_Q, 3), refs (KNN_M, 3), ref mask (KNN_M,), the number
@@ -2249,6 +2281,356 @@ def tables_main(n: int) -> None:
     run_tables(None, f"{len(cards)} x {cards[0]}", n, "nccl")
 
 
+# ---- 12. the compiled step: CUDA graphs of step_b and step ---------------
+
+def graph_nodes(g) -> int:
+    """Nodes of a captured graph (``graph.StepGraph`` keeps the
+    cudaGraph_t), counted by the CUDA driver's cuGraphGetNodes."""
+    import ctypes
+    n = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        fail(f"cuGraphGetNodes: CUDA driver error {err}")
+    return n.value
+
+
+def pool_mib(g) -> float | None:
+    """MiB of the caching allocator's segments in a graph's private pool,
+    or None where the allocator's snapshot names no segment of it."""
+    import torch
+    pool = tuple(g.pool())
+    sizes = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+             if tuple(seg.get("segment_pool_id", ())) == pool]
+    return sum(sizes) / 2 ** 20 if sizes else None
+
+
+def graph_spy(mods, seen: list):
+    """A with-block in which every capture of ``graph.StepGraph`` appends
+    to ``seen`` the kernel launches its body made while the stream was
+    capturing, the ``Captured`` record, its node count and its frames."""
+    import torch
+    from aloam_tpu_torch import graph as gm
+    body, capture = gm.StepGraph._body, gm.StepGraph._capture
+
+    def spy_body(self, slot, frame0):
+        before = {n: launch_count(mods, n) for n in KERNELS}
+        out = body(self, slot, frame0)
+        if torch.cuda.is_current_stream_capturing():
+            seen.append({"launches": {n: launch_count(mods, n) - before[n]
+                                      for n in KERNELS}})
+        return out
+
+    def spy_capture(self, slot, frame0, pattern):
+        cap = capture(self, slot, frame0, pattern)
+        seen[-1].update(captured=cap, nodes=graph_nodes(cap.graph),
+                        frames=len(pattern), pool_mib=pool_mib(cap.graph))
+        return cap
+    return Patched([(gm.StepGraph, "_body", spy_body),
+                    (gm.StepGraph, "_capture", spy_capture)])
+
+
+def stepped(fn, pipeline, cfg, data, device, batch):
+    """``fn(state, xyz, mask)`` over the frames from a fresh state: (the
+    outputs of every frame, kept on the device, and the final state)."""
+    import torch
+    st = pipeline.init_state(cfg, batch, device)
+    outs = []
+    for xyz, mask in data:
+        st, out = fn(st, xyz, mask)
+        outs.append(out)
+    torch.cuda.synchronize()
+    return outs, st
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+def same_outputs(tag, outs, ref) -> None:
+    """Every output of every frame (device SlamOutputs) bit-equal to the
+    reference run's (run_frames' host dicts, or SlamOutputs)."""
+    for f, (o, r) in enumerate(zip(outs, ref, strict=True)):
+        r = r if isinstance(r, dict) else {
+            k: v.cpu().numpy() for k, v in r._asdict().items()
+            if v is not None}
+        for k, want in r.items():
+            got = getattr(o, k)
+            if got is None or not same_bits(got.cpu().numpy(), want):
+                fail(f"[graph] {tag}: frame {f} {k} is not bit-equal to the "
+                     f"eager run")
+
+
+def same_tables(tag, map_state, want) -> None:
+    """The map tables of a state bit-equal to ``want`` (corner, surf)."""
+    import torch
+    for got, ref in zip((*map_state.corner, *map_state.surf),
+                        (*want[0], *want[1]), strict=True):
+        if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            fail(f"[graph] {tag}: the final map tables are not bit-equal to "
+                 f"the eager run's")
+
+
+def check_capture(tag, rec, want, names) -> None:
+    """A capture's body launched every kernel of ``names``, each as often
+    as one eager frame (``want``), times its frames."""
+    got = {n: rec["launches"][n] for n in names}
+    per = {n: want[n] * rec["frames"] for n in names}
+    if got != per or min(got.values()) < 1:
+        fail(f"[graph] {tag}: the capture launched {got}, eager frames "
+             f"{per}")
+
+
+def graph_busy(fn, pipeline, cfg, data, device, batch):
+    """Frames 1.. of a graphed run under torch.profiler (the graph
+    captured on frame 0): (device busy ms a frame, wall ms a frame under
+    the profiler, device operations a frame)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    st = pipeline.init_state(cfg, batch, device)
+    st, _ = fn(st, *data[0])
+    torch.cuda.synchronize()
+    n = len(data) - 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for xyz, mask in data[1:]:
+            st, _ = fn(st, xyz, mask)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    cuda = torch.autograd.DeviceType.CUDA
+    durs = [ev.time_range.elapsed_us() for ev in prof.events()
+            if ev.device_type == cuda]
+    return sum(durs) / 1e3 / n, wall, len(durs) / n
+
+
+def frame_ms(fn, pipeline, cfg, data, device, batch) -> float:
+    """Mean host ms of frames 1.. of ``fn`` from a fresh state, a device
+    synchronize on both sides of each frame (the [step] clock)."""
+    import torch
+    st = pipeline.init_state(cfg, batch, device)
+    ms = []
+    for xyz, mask in data:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = fn(st, xyz, mask)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(ms[1:]))
+
+
+def issue_ms(fn, pipeline, cfg, data, device, batch) -> float:
+    """Mean host ms to issue frames 1.. of ``fn`` (the call returns before
+    the device has run them; a synchronize between frames)."""
+    import torch
+    st = pipeline.init_state(cfg, batch, device)
+    st, _ = fn(st, *data[0])
+    ms = []
+    for xyz, mask in data[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = fn(st, xyz, mask)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.mean(ms))
+
+
+def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
+              outs_1, tables_1, dist, device, card):
+    """Phase 12: the compiled step, ``graph.StepGraph`` behind
+    ``parallel.batched_step_jit``, ``pipeline.make_step_fn`` and
+    ``pipeline.run_sequence(scan=True)``.
+
+    (a) One eager frame of step_b (B = 16) and one of step under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronization
+    (a capture needs none); their launches a frame. (b) The graphed
+    step_b over phase 6's 16 streams and 8 frames: every output of every
+    frame and the final tables bit-equal to phase 6's eager kernel run;
+    one capture whose body launched each kernel as one eager frame does,
+    8 replays. (c) The graphed step over phase 8's frames, bit-equal to
+    phase 8; then 4 frames at mapping_skip_frame 2 (two graphs, one a
+    gate branch) bit-equal to the eager step at that config. (d)
+    ``run_sequence(scan=True)`` over the same 8 frames: one graph of 8
+    frames, one replay, bit-equal to (c); its capture and instantiate
+    ms, node count and peak memory. (e) The distorted step_b graphed over
+    4 of phase 10's frames, bit-equal to phase 10's eager run. (g) Eager
+    and graphed step_b and step timed in turn three times; the graphed
+    frame's device busy time under torch.profiler, the replay alone and
+    the host time to issue a frame. ((f), the CLI through the graphed
+    step, is phase 9.)"""
+    import torch
+    from aloam_tpu_torch import graph as gm
+    from aloam_tpu_torch import parallel
+    t_phase = time.perf_counter()
+    dcfg_b, dframes, d_outs = dist
+
+    # (a) no host synchronization on an eager frame
+    per_frame, peak_1 = {}, 0
+    for tag, step, c, data, batch in (
+            ("step_b", pipeline.step_b, cfg, frames, B),
+            ("step", pipeline.step, cfg_1, single, 1)):
+        st = pipeline.init_state(c, batch, device)
+        st, _ = step(st, *data[0], c)
+        torch.cuda.synchronize()
+        reset_counts(mods)
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, _ = step(st, *data[1], c)
+        except RuntimeError as e:
+            fail(f"[graph] an eager frame of {tag} synchronizes with the "
+                 f"host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        peak_1 = torch.cuda.max_memory_allocated(device)
+        per_frame[tag] = {n: launch_count(mods, n) for n in KERNELS}
+        del st
+    say(f"[graph] (a) one eager frame of step_b (B={B}) and of step under "
+        f"set_sync_debug_mode('error'): no host synchronization; launches "
+        f"a frame {per_frame}")
+
+    # (b) the graphed step_b
+    seen = []
+    gm.captures = gm.replays = 0
+    with graph_spy(mods, seen):
+        outs, st = stepped(parallel.batched_step_jit(cfg), pipeline, cfg,
+                           frames, device, B)
+    same_outputs("step_b", outs, outs_b)
+    same_tables("step_b", st.map, tables_b)
+    del st
+    if (gm.captures, gm.replays, len(seen)) != (1, N_FRAMES, 1):
+        fail(f"[graph] step_b: {gm.captures} captures, {gm.replays} replays")
+    check_capture("step_b", seen[0], per_frame["step_b"], STEP_KERNELS)
+    rec = seen[0]
+    say(f"[graph] (b) batched_step_jit over {B} streams x {N_FRAMES} frames: "
+        f"one capture ({rec['captured'].capture_ms:.1f} ms, instantiate "
+        f"{rec['captured'].instantiate_ms:.1f} ms, {rec['nodes']} nodes, "
+        f"pool {rec['pool_mib']} MiB), {gm.replays} replays; outputs of "
+        f"every frame and the final tables bit-equal to [step]; the capture "
+        f"launched {rec['launches']}")
+
+    # (c) the graphed step, then two gate branches
+    seen.clear()
+    gm.captures = gm.replays = 0
+    with graph_spy(mods, seen):
+        outs_c, st_c = stepped(pipeline.make_step_fn(cfg_1), pipeline,
+                               cfg_1, single, device, 1)
+    same_outputs("step", outs_c, outs_1)
+    same_tables("step", st_c.map, tables_1)
+    check_capture("step", seen[0], per_frame["step"], SINGLE_KERNELS)
+    rec = seen[0]
+    c2 = cfg_1.replace(mapping_skip_frame=2)
+    want2 = run_frames(pipeline.step, pipeline, c2, single[:4], device, 1)
+    fn2 = pipeline.make_step_fn(c2)
+    outs2, st2 = stepped(fn2, pipeline, c2, single[:4], device, 1)
+    same_outputs("step at mapping_skip_frame 2", outs2, want2[0])
+    same_tables("step at mapping_skip_frame 2", st2.map,
+                (want2[2].map.corner, want2[2].map.surf))
+    n_graphs = [len(slot.graphs) for slot in fn2.slots.values()]
+    if n_graphs != [2]:
+        fail(f"[graph] step at mapping_skip_frame 2: graphs {n_graphs}")
+    del want2, st2
+    say(f"[graph] (c) make_step_fn over one stream x {N_FRAMES} frames: one "
+        f"capture ({rec['captured'].capture_ms:.1f} ms, instantiate "
+        f"{rec['captured'].instantiate_ms:.1f} ms, {rec['nodes']} nodes, "
+        f"pool {rec['pool_mib']} MiB), bit-equal to [single]; "
+        f"mapping_skip_frame 2 over 4 frames: two graphs (map, skip), "
+        f"bit-equal to the eager step")
+
+    # (d) one graph of the whole sequence
+    seen.clear()
+    xs = torch.stack([x for x, _ in single])
+    ms_ = torch.stack([m for _, m in single])
+    gm.captures = gm.replays = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    with graph_spy(mods, seen):
+        st_d, outs_d = pipeline.run_sequence(
+            pipeline.init_state(cfg_1, 1, device), xs, ms_, cfg_1, scan=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    if (gm.captures, gm.replays) != (1, 1):
+        fail(f"[graph] run_sequence(scan=True): {gm.captures} captures, "
+             f"{gm.replays} replays")
+    same_outputs("run_sequence(scan=True)", [
+        pipeline.SlamOutputs(*(None if o is None else o[f] for o in outs_d))
+        for f in range(N_FRAMES)], outs_c)
+    same_tables("run_sequence(scan=True)", st_d.map,
+                (st_c.map.corner, st_c.map.surf))
+    check_capture("run_sequence(scan=True)", seen[0], per_frame["step"],
+                  SINGLE_KERNELS)
+    rec = seen[0]
+    del st_d, st_c, outs_c
+    say(f"[graph] (d) run_sequence(scan=True) over {N_FRAMES} frames: one "
+        f"graph of {rec['frames']} frames, one replay, bit-equal to (c); "
+        f"capture {rec['captured'].capture_ms:.1f} ms, instantiate "
+        f"{rec['captured'].instantiate_ms:.1f} ms, {rec['nodes']} nodes, "
+        f"pool {rec['pool_mib']} MiB; peak device memory of the call "
+        f"{peak / 2 ** 30:.3f} GiB above its start (one eager frame of "
+        f"step: {peak_1 / 2 ** 30:.3f} GiB in all) ({card})")
+
+    # (e) the distorted step_b
+    seen.clear()
+    with graph_spy(mods, seen):
+        outs_e, st_e = stepped(parallel.batched_step_jit(dcfg_b), pipeline,
+                               dcfg_b, dframes[:4], device, B)
+    del st_e
+    same_outputs("distorted step_b", outs_e, d_outs[:4])
+    if seen[0]["launches"]["lm_fused_s"] < 1:
+        fail("[graph] the distorted step_b's capture never launched "
+             "lm_fused_s")
+    say(f"[graph] (e) batched_step_jit at distortion=True over {B} streams x "
+        f"4 frames: bit-equal to [dist_step]; the capture launched "
+        f"{seen[0]['launches']} ({seen[0]['nodes']} nodes)")
+
+    # (g) eager against graphed, in turn, three times
+    runs = {
+        "step_b eager": (lambda s, x, m: pipeline.step_b(s, x, m, cfg), cfg,
+                         frames, B),
+        "step_b graph": (parallel.batched_step_jit(cfg), cfg, frames, B),
+        "step eager": (lambda s, x, m: pipeline.step(s, x, m, cfg_1), cfg_1,
+                       single, 1),
+        "step graph": (pipeline.make_step_fn(cfg_1), cfg_1, single, 1)}
+    times = {k: [] for k in runs}
+    for _ in range(3):
+        for k, (fn, c, data, batch) in runs.items():
+            times[k].append(frame_ms(fn, pipeline, c, data, device, batch))
+    rate = {k: ([B * 1e3 / t for t in v] if k.startswith("step_b") else v)
+            for k, v in times.items()}
+    say("[graph] (g) frames 1-7, in turn three times: "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
+                    + (" scans/s" if k.startswith("step_b") else " ms/scan")
+                    for k, v in rate.items()) + f" ({card})")
+    for k in ("step_b graph", "step graph"):
+        fn, c, data, batch = runs[k]
+        torch.cuda.reset_peak_memory_stats(device)
+        busy, wall, ops = graph_busy(fn, pipeline, c, data, device, batch)
+        peak = torch.cuda.max_memory_allocated(device)
+        idle = f"idle {100 * (1 - busy / wall):.1f}%" if busy > 0 \
+            else "the profiler saw no device time: not measured"
+        issue = issue_ms(fn, pipeline, c, data, device, batch)
+        eager = issue_ms(runs[k.replace("graph", "eager")][0], pipeline, c,
+                         data, device, batch)
+        # the replay alone, back to back (each advances the static state)
+        (slot,) = fn.slots.values()
+        (cap,) = slot.graphs.values()
+        replay = cuda_ms(cap.graph.replay, 10)
+        say(f"[graph] (g) {k}: device busy {busy:.3f} of {wall:.2f} ms a "
+            f"frame under torch.profiler ({idle}), {ops:.0f} device "
+            f"operations a frame; the replay alone {replay:.3f} ms back to "
+            f"back; the host issues a frame in {issue:.3f} ms (eager "
+            f"{eager:.3f}); peak device memory {peak / 2 ** 30:.3f} GiB "
+            f"with the graph's pool, reserved "
+            f"{torch.cuda.memory_reserved(device) / 2 ** 30:.3f} GiB "
+            f"({card})")
+    say(f"[graph] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
+
 def main() -> None:
     import torch
 
@@ -2306,6 +2688,7 @@ def main() -> None:
     launches, st_b, outs_b, ms_b, busy_b = run_step(pipeline, mods, cfg, frames, gt,
                                             device, card)
     knn_pts = knn_points(st_b.map, cfg)
+    tables_b = (st_b.map.corner, st_b.map.surf)
 
     # ---- 7-9. knn_select, the single-stream step, the CLI ----------------
     cfg_1 = PRESETS["HDL-64"]
@@ -2323,19 +2706,24 @@ def main() -> None:
         results, card)
     del st_b
     check_adversarial_knn(mods, device, results, card)
-    single_launches = run_single(pipeline, mods, cfg_1, single, sgt, device,
-                                 card)
+    single_launches, outs_1, tables_1 = run_single(
+        pipeline, mods, cfg_1, single, sgt, device, card)
     launches["knn_select"] = single_launches["knn_select"]
     run_cli(device, card)
 
     # ---- 10. the distortion path ------------------------------------------
-    launches["lm_fused_s"] = run_distortion(
-        pipeline, mods, cfg, cfg_1, device, results, card)["lm_fused_s"]
+    dist_launches, dist = run_distortion(pipeline, mods, cfg, cfg_1, device,
+                                         results, card)
+    launches["lm_fused_s"] = dist_launches["lm_fused_s"]
 
     # ---- 11. streams and the kNN split over torch.distributed ranks -------
     run_parallel(pipeline, mods, cfg, frames, outs_b, ms_b, busy_b,
                  launches, knn_pts, device, card)
     run_tables(outs_b, card)
+
+    # ---- 12. the compiled step: CUDA graphs -------------------------------
+    run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
+              outs_1, tables_1, dist, device, card)
 
     kernels = [dict(name=name, route="cuda", source=spec[3],
                     replaces=spec[4], launches=launches[name],

@@ -557,54 +557,62 @@ def test_step_matches_jax_chain(jax_run):
     pose difference, within 1e-4."""
     xyz, mask, _, outs = jax_run
     st = tp.init_state(CFG, 1, "cpu")
-    exact = ("n_sharp", "n_flat", "n_less_sharp", "n_less_flat",
-             "map_solved")
     for f in range(N_FRAMES):
         st, out = tp.step(st, _t(xyz[f]), _t(mask[f]), CFG)
-        want = outs[f]
-        for name, atol in (("q_odom", 5e-4), ("t_odom", 5e-4),
-                           ("q_map", 2.5e-2), ("t_map", 2.5e-2),
-                           ("q_hf", 2.5e-2), ("t_hf", 2.5e-2)):
-            got = getattr(out, name).numpy()
-            assert got.shape == np.shape(getattr(want, name))
-            np.testing.assert_allclose(got, getattr(want, name), atol=atol,
-                                       err_msg=f"{name} {f}")
-        got_m, want_m = tp.metrics_dict(out.metrics), \
-            jpipe.metrics_dict(want.metrics)
-        assert tuple(got_m) == tuple(want_m)
-        for name, g in got_m.items():
-            w = want_m[name]
-            msg = f"frame {f} {name}: {g} vs {w}"
-            if name in exact:
-                assert g == w, msg
-            elif name == "odom_cost":
-                np.testing.assert_allclose(g, w, rtol=5e-2, atol=1e-3,
-                                           err_msg=msg)
-            elif name == "map_cache_crossed":
-                assert abs(g - w) <= 16, msg
-            else:
-                assert abs(g - w) <= max(8, 0.03 * w), msg
-
-        reg, jreg = out.registered.numpy(), want.registered
-        np.testing.assert_array_equal(out.registered_mask.numpy(),
-                                      want.registered_mask)
-        m = want.registered_mask
-        if f == 0:
-            np.testing.assert_allclose(reg[m], jreg[m], atol=1e-5, rtol=0)
-        else:
-            p = jgeo.qrot_inv(want.q_map, jreg[m] - want.t_map)
-            np.testing.assert_allclose(
-                reg[m], _world(out.q_map, out.t_map, np.asarray(p)),
-                atol=1e-4, rtol=0)
+        got_m = assert_frame_matches_jax(out, outs[f], f)
     assert st.frame == N_FRAMES and st.odom.q_w.shape == (1, 4)
     assert np.linalg.norm(out.t_odom.numpy()) > 0.05
     assert got_m["map_solved"] == 1 and got_m["map_surf_factors"] > 50
 
 
+def assert_frame_matches_jax(out, want, f):
+    """Frame ``f``'s outputs of the port's single-stream step against
+    JAX's, at the bounds test_step_matches_jax_chain states; returns the
+    port's metrics_dict."""
+    exact = ("n_sharp", "n_flat", "n_less_sharp", "n_less_flat",
+             "map_solved")
+    for name, atol in (("q_odom", 5e-4), ("t_odom", 5e-4),
+                       ("q_map", 2.5e-2), ("t_map", 2.5e-2),
+                       ("q_hf", 2.5e-2), ("t_hf", 2.5e-2)):
+        got = getattr(out, name).numpy()
+        assert got.shape == np.shape(getattr(want, name))
+        np.testing.assert_allclose(got, getattr(want, name), atol=atol,
+                                   err_msg=f"{name} {f}")
+    got_m, want_m = tp.metrics_dict(out.metrics), \
+        jpipe.metrics_dict(want.metrics)
+    assert tuple(got_m) == tuple(want_m)
+    for name, g in got_m.items():
+        w = want_m[name]
+        msg = f"frame {f} {name}: {g} vs {w}"
+        if name in exact:
+            assert g == w, msg
+        elif name == "odom_cost":
+            np.testing.assert_allclose(g, w, rtol=5e-2, atol=1e-3,
+                                       err_msg=msg)
+        elif name == "map_cache_crossed":
+            assert abs(g - w) <= 16, msg
+        else:
+            assert abs(g - w) <= max(8, 0.03 * w), msg
+
+    reg, jreg = out.registered.numpy(), want.registered
+    np.testing.assert_array_equal(out.registered_mask.numpy(),
+                                  want.registered_mask)
+    m = want.registered_mask
+    if f == 0:
+        np.testing.assert_allclose(reg[m], jreg[m], atol=1e-5, rtol=0)
+    else:
+        p = jgeo.qrot_inv(want.q_map, jreg[m] - want.t_map)
+        np.testing.assert_allclose(
+            reg[m], _world(out.q_map, out.t_map, np.asarray(p)),
+            atol=1e-4, rtol=0)
+    return got_m
+
+
 def test_run_sequence_and_make_step_fn(jax_run):
     """run_sequence is the host loop of step (outputs stacked along a
     leading frame axis, equal to stepping by hand with make_step_fn's
-    closure); scan=True has no counterpart and raises."""
+    closure); scan=True, the one-program sequence, gives the same outputs
+    and final tables bit for bit."""
     xyz, mask, _, _ = jax_run
     cfg = CFG.replace(emit_registered=False)
     st, outs = tp.run_sequence(tp.init_state(cfg, 1, "cpu"), _t(xyz[:2]),
@@ -617,8 +625,15 @@ def test_run_sequence_and_make_step_fn(jax_run):
         st2, out = fn(st2, _t(xyz[f]), _t(mask[f]))
     assert torch.equal(out.t_map, outs.t_map[1])
     assert torch.equal(st2.map.surf.pts, st.map.surf.pts)
-    with pytest.raises(ValueError, match="scan=True"):
-        tp.run_sequence(st, _t(xyz[:1]), _t(mask[:1]), cfg, scan=True)
+    st3, outs3 = tp.run_sequence(tp.init_state(cfg, 1, "cpu"), _t(xyz[:2]),
+                                 _t(mask[:2]), cfg, scan=True)
+    assert st3.frame == 2 and outs3.registered is None
+    for name in ("q_odom", "t_odom", "q_map", "t_map", "q_hf", "t_hf",
+                 "metrics"):
+        assert torch.equal(getattr(outs3, name), getattr(outs, name)), name
+    for a, b in zip((*st3.map.corner, *st3.map.surf),
+                    (*st.map.corner, *st.map.surf)):
+        assert torch.equal(a, b)
 
 
 # --- checkpoint ------------------------------------------------------------------
