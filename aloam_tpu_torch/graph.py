@@ -1,7 +1,9 @@
 """Captured CUDA graphs of the SLAM step: the port's counterpart of the
 JAX package's ``jax.jit`` with a donated state (``pipeline.make_step_fn``,
-``parallel.batched_step_jit``) and of its one-program ``lax.scan``
-(``pipeline.run_sequence(scan=True)``).
+``parallel.batched_step_jit``, the sharded ``parallel.batched_step_fn``)
+and of its one-program ``lax.scan`` (``pipeline.run_sequence(scan=True)``);
+:class:`FnGraph` is the counterpart of a ``jax.jit`` with no state and no
+donation (``parallel.sharded_knn``).
 
 A :class:`StepGraph` binds one step function (``pipeline.step`` or
 ``step_b`` with its config). For each set of shapes and device it keeps a
@@ -40,7 +42,27 @@ capture stream while a graph is captured.
   for one frame with a ``mapping_skip_frame`` above 1 (JAX's
   ``lax.cond``), one with 1.
 * **On CPU tensors** the same body runs eagerly on the same static
-  buffers, with no graph: the tests' path.
+  buffers, with no graph: the tests' path. So does a CUDA state of a
+  step built with ``capture=False``: a body whose collectives cannot be
+  captured (gloo's: ``parallel.sharding.graphed`` decides, before any
+  capture, never after a failure).
+* **Collectives.** A body may issue ``torch.distributed`` collectives on
+  an NCCL group (the sharded step's ``all_reduce``s, ``sharded_knn``'s
+  ``all_gather``s): they are captured as NCCL kernels and run at each
+  replay, so every rank of the group captures the same collectives in
+  the same order and replays together (a replay waits for its peers).
+  The warm-up frame runs every collective of the body before the capture,
+  which creates the group's NCCL communicator (PyTorch makes it at the
+  first collective); a collective in a gate branch is warmed up by that
+  branch's warm-up frame, before the graph of its pattern is captured.
+  Free such a graph before its process group is destroyed
+  (``parallel.distributed.finish``): ``destroy_process_group`` hangs
+  while a graph with NCCL collectives of two or more ranks is alive.
+  The capture runs in ``torch.cuda.graph``'s default capture mode,
+  ``"global"``, which NCCL needs no change of: on torch 2.11 with NCCL
+  2.28 a capture with NCCL collectives inside holds while the process
+  group's watchdog thread runs, also with eager collectives still in
+  flight and the capture held open for seconds.
 """
 
 from __future__ import annotations
@@ -65,7 +87,9 @@ def _tensors(tree) -> list:
 def _rebuild(tree, leaves):
     """``tree`` with its tensor leaves taken in order from ``leaves``."""
     if isinstance(tree, tuple):
-        return type(tree)(*(_rebuild(sub, leaves) for sub in tree))
+        subs = [_rebuild(sub, leaves) for sub in tree]
+        return type(tree)(*subs) if hasattr(tree, "_fields") \
+            else type(tree)(subs)
     return next(leaves) if torch.is_tensor(tree) else tree
 
 
@@ -98,10 +122,9 @@ def copy_into(dst: list, src: list) -> None:
         d.copy_(s)
 
 
-def _key(state, xyz: torch.Tensor, mask: torch.Tensor) -> tuple:
-    """What a slot is made for: every leaf's shape, dtype and device."""
-    return tuple((tuple(t.shape), t.dtype, t.device)
-                 for t in _tensors(state) + [xyz, mask])
+def _key_of(tensors) -> tuple:
+    """What a slot is made for: every tensor's shape, dtype and device."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in tensors)
 
 
 class _Slot:
@@ -138,10 +161,14 @@ class StepGraph:
     """``step(state, xyz, mask) -> (state, outputs)`` run as a captured
     CUDA graph on a CUDA state, eagerly on a CPU one (see the module
     docstring). ``gate(frame)`` is the step's host-side branch at a frame
-    (``pipeline.maps_at`` with the config bound)."""
+    (``pipeline.maps_at`` with the config bound). With ``capture=False``
+    a CUDA state runs the same body eagerly too. ``step`` itself is the
+    eager step, with no static buffers."""
 
-    def __init__(self, step, gate, donate: bool = True):
+    def __init__(self, step, gate, donate: bool = True,
+                 capture: bool = True):
         self.step, self.gate, self.donate = step, gate, donate
+        self.capture = capture
         self.slots: dict = {}
 
     def __call__(self, state, xyz: torch.Tensor, mask: torch.Tensor):
@@ -154,7 +181,7 @@ class StepGraph:
         ``state``: (the state after them, the outputs stacked along a
         leading frame axis). On a CUDA state all F frames are one graph,
         replayed once."""
-        key = _key(state, xyz_seq, mask_seq)
+        key = _key_of(_tensors(state) + [xyz_seq, mask_seq])
         slot = self.slots.get(key)
         if slot is None:
             slot = self.slots[key] = _Slot(state, xyz_seq, mask_seq,
@@ -164,16 +191,13 @@ class StepGraph:
         slot.xyz.copy_(xyz_seq)
         slot.mask.copy_(mask_seq)
         n = xyz_seq.shape[0]
-        if slot.xyz.is_cuda:
+        if slot.xyz.is_cuda and self.capture:
             pattern = tuple(self.gate(state.frame + f) for f in range(n))
             cap = slot.graphs.get(pattern)
             if cap is None:
                 cap = slot.graphs[pattern] = self._capture(slot, state.frame,
                                                            pattern)
-            cap.graph.replay()
-            global replays
-            replays += 1
-            outs = _cloned(cap.outputs)
+            outs = _replayed(cap)
         else:
             outs = self._body(slot, state.frame)
         new = slot.state._replace(frame=state.frame + n)
@@ -198,24 +222,76 @@ class StepGraph:
     def _capture(self, slot: _Slot, frame0: int, pattern: tuple) -> Captured:
         """Warm up each gate branch of ``pattern`` on a clone of the static
         state on a side stream, then capture :meth:`_body`."""
-        dev = slot.xyz.device
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                for branch in dict.fromkeys(pattern):
-                    f = pattern.index(branch)
-                    warm = _cloned(slot.state)._replace(frame=frame0 + f)
-                    self.step(warm, slot.xyz[f], slot.mask[f])
-                    del warm
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            t0 = time.perf_counter()
-            with torch.cuda.graph(graph):
-                outputs = self._body(slot, frame0)
-            t1 = time.perf_counter()
-            graph.instantiate()
-            t2 = time.perf_counter()
-        global captures
-        captures += 1
-        return Captured(graph, outputs, (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+        def warm_up():
+            for branch in dict.fromkeys(pattern):
+                f = pattern.index(branch)
+                warm = _cloned(slot.state)._replace(frame=frame0 + f)
+                self.step(warm, slot.xyz[f], slot.mask[f])
+        return _captured(slot.xyz.device, warm_up,
+                         lambda: self._body(slot, frame0))
+
+
+def _captured(dev: torch.device, warm_up, body) -> Captured:
+    """``warm_up()`` run eagerly on a side stream of ``dev`` (ordered
+    after the current stream's work, and before what follows), then
+    ``body()`` captured into a new graph and instantiated; counted in
+    :data:`captures`."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm_up()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            outputs = body()
+        t1 = time.perf_counter()
+        graph.instantiate()
+        t2 = time.perf_counter()
+    global captures
+    captures += 1
+    return Captured(graph, outputs, (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+
+
+def _replayed(cap: Captured):
+    """One replay of ``cap`` on the current stream, its outputs cloned out
+    of the graph's pool; counted in :data:`replays`."""
+    cap.graph.replay()
+    global replays
+    replays += 1
+    return _cloned(cap.outputs)
+
+
+class FnGraph:
+    """``fn(*tensors)`` -> a tensor or a tuple of them, with no state:
+    captured once per set of the inputs' shapes, dtypes and devices, then
+    replayed (the counterpart of a ``jax.jit`` with no donation). The
+    first call with a key copies its inputs into static buffers, runs
+    ``fn`` once eagerly on them on a side stream (the warm-up: cached
+    constants, the communicator of a collective, the allocator), captures
+    ``fn`` on them and replays the graph; a later call copies its inputs
+    in and replays. The outputs are cloned out of the graph's pool, so
+    the next call cannot overwrite them, and the caller's inputs are never
+    written. On CPU tensors, or with ``capture=False``, ``fn`` runs
+    eagerly on the caller's inputs."""
+
+    def __init__(self, fn, capture: bool = True):
+        self.fn, self.capture = fn, capture
+        self.slots: dict = {}          # key -> (static inputs, Captured)
+
+    def __call__(self, *args: torch.Tensor):
+        if not (self.capture and args[0].is_cuda):
+            return self.fn(*args)
+        key = _key_of(args)
+        slot = self.slots.get(key)
+        if slot is None:
+            static = [a.clone(memory_format=torch.contiguous_format)
+                      for a in args]
+            slot = self.slots[key] = (static, _captured(
+                args[0].device, lambda: self.fn(*static),
+                lambda: self.fn(*static)))
+        else:
+            for s, a in zip(slot[0], args, strict=True):
+                s.copy_(a)
+        return _replayed(slot[1])

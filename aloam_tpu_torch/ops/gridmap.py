@@ -97,7 +97,9 @@ def _table_size(rows: int, shard: TableShard | None) -> int:
 
 def _group_sum(t: torch.Tensor, shard: TableShard | None) -> torch.Tensor:
     """``t`` summed over the shard's group, in place (nothing to do for a
-    whole table or a group of None)."""
+    whole table or a group of None). ``t`` is a device tensor made in the
+    step and the call does not wait on the host, so on an NCCL group the
+    ``all_reduce`` is captured with the step into its CUDA graph."""
     if shard is not None and shard.group is not None:
         dist.all_reduce(t, group=shard.group)
     return t

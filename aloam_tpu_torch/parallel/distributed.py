@@ -32,8 +32,10 @@ import datetime
 import os
 import socket
 import subprocess
+import sys
 import tempfile
 import time
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -73,6 +75,26 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank,
                             timeout=TIMEOUT)
+
+
+def finish() -> None:
+    """The end of a rank, called from the ``finally`` of its main: destroy
+    the default process group; while an exception is propagating, print
+    it and leave the process at once instead. A CUDA graph that captured
+    NCCL collectives must be freed before its group is destroyed: with
+    one alive, ``destroy_process_group`` hangs (two or more ranks; torch
+    2.11, NCCL 2.28), and a failing rank's traceback keeps its graphs
+    alive."""
+    exc = sys.exc_info()[1]
+    if exc is None:
+        dist.destroy_process_group()
+        return
+    if not isinstance(exc, SystemExit):
+        traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(exc.code if isinstance(exc, SystemExit)
+             and isinstance(exc.code, int) else 1)
 
 
 def world() -> tuple[int, int]:
@@ -164,8 +186,10 @@ def spawn(argv: list[str], n: int, env: dict | None = None,
 
 def _selftest(device: str) -> None:
     """Initialize (from the environment; a process run alone forms a world
-    of one), build the global mesh and run one sharded step of the tiny
-    config on this rank's streams."""
+    of one), build the global mesh and run two sharded steps of the tiny
+    config on this rank's streams, the second from the state the first
+    returned (on the card: one capture, two replays)."""
+    from aloam_tpu_torch import graph
     from aloam_tpu_torch.config import AloamConfig
     from aloam_tpu_torch.io import synthetic as syn
     from aloam_tpu_torch.parallel import sharding
@@ -193,16 +217,20 @@ def _selftest(device: str) -> None:
         xyz = torch.from_numpy(xyz1).to(dev).expand(local, -1, -1)
         mask = torch.from_numpy(mask1).to(dev).expand(local, -1)
         step = sharding.batched_step_fn(cfg, mesh)
-        _, outs = step(sharding.batched_init(cfg, local, dev),
-                       xyz.contiguous(), mask.contiguous())
+        st = sharding.batched_init(cfg, local, dev)
+        for _ in range(2):
+            st, outs = step(st, xyz.contiguous(), mask.contiguous())
+        del step              # its graphs go before the group (finish)
         t_map = sharding.gather_outputs(outs, mesh).t_map
         if not bool(torch.isfinite(t_map).all()):
             raise RuntimeError(f"selftest: non-finite t_map {t_map}")
         print(f"distributed selftest OK: processes={world()[0]} "
               f"mesh=({mesh.size(0)} data x {mesh.size(1)} model) "
-              f"local_batch={local}@{off} device={dev}", flush=True)
+              f"local_batch={local}@{off} device={dev} "
+              f"captures={graph.captures} replays={graph.replays}",
+              flush=True)
     finally:
-        dist.destroy_process_group()
+        finish()
 
 
 if __name__ == "__main__":

@@ -9,10 +9,14 @@ part of their map tables. Every rank asserts that its table leaves are
 its part, (B / n_data, H / n_model, ·), and that the parts' bytes times
 the ranks make the whole; rank 0 holds the gathered trajectories against
 the unsharded step. Then ``sharded_knn`` runs over a (1, n_ranks) mesh of
-the same ranks against the dense ``knn``. Rank 0 prints four OK lines:
-the table partition, the trajectory match, the sharded kNN, and the dry
-run. Unlike the JAX dry run, which steps one stream a data rank, each
-model group steps two streams.
+the same ranks against the dense ``knn``. Both run through the compiled
+entry points: over NCCL the sharded step and ``sharded_knn`` are
+captured into CUDA graphs, collectives included, and replayed
+(``parallel.graphed``); over gloo they run eagerly. Rank 0 prints five
+OK lines: the table partition, the trajectory match, the sharded kNN,
+the graphs it captured and replayed (``graph.captures``,
+``graph.replays``), and the dry run. Unlike the JAX dry run, which steps
+one stream a data rank, each model group steps two streams.
 
     python -m aloam_tpu_torch.parallel.dryrun --ranks 4 --device cpu
     torchrun --nproc-per-node 4 -m aloam_tpu_torch.parallel.dryrun --device cpu
@@ -30,8 +34,8 @@ import sys
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from aloam_tpu_torch import graph
 from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.io import synthetic as syn
 from aloam_tpu_torch.neighbors import knn
@@ -163,9 +167,19 @@ def run_rank(device_type: str) -> None:
     ref = torch.from_numpy(rng.normal(size=(1024, 3)).astype(np.float32))
     check_sharded_knn(kmesh, q.to(device), ref.to(device),
                       torch.ones(1024, dtype=torch.bool, device=device))
+    # on the card each compiled entry point captured: the sharded step
+    # (one graph of its one gate branch) and sharded_knn, and on rank 0
+    # the unsharded step
+    want = (3 if rank == 0 else 2) if device.type == "cuda" else 0
+    if graph.captures != want:
+        raise RuntimeError(f"{graph.captures} graphs captured, expected "
+                           f"{want} on {device}")
     if rank == 0:
         print(f"sharded knn OK: mesh=(1 data x {size} model), Q=128, "
               f"M=1024, k=5, equal to the dense knn", flush=True)
+        print(f"graphs OK: captures={graph.captures} "
+              f"replays={graph.replays} ({'captured' if want else 'eager'}"
+              f" on {device.type})", flush=True)
         print(f"dryrun_multichip OK: mesh=({n_data} data x {n_model} "
               f"model), batch={batch}", flush=True)
 
@@ -208,9 +222,9 @@ def main() -> None:
     distributed.initialize(backend="gloo" if args.device == "cpu"
                            else "nccl")
     try:
-        run_rank(args.device)
+        run_rank(args.device)      # its graphs are freed as it returns
     finally:
-        dist.destroy_process_group()
+        distributed.finish()
 
 
 if __name__ == "__main__":

@@ -26,6 +26,11 @@ The reference's only concurrency is three OS processes on one machine
   rank takes the local top-k of its slice of the refs, and the partial
   results merge after an ``all_gather`` over the model group.
 
+Both entry points are compiled, as the JAX package jits them:
+:func:`batched_step_fn` is a ``graph.StepGraph`` and :func:`sharded_knn`
+a ``graph.FnGraph``, captured into CUDA graphs with their collectives
+where :func:`graphed` allows it.
+
 ``pin_table_layouts``, an XLA layout knob, has no counterpart.
 """
 
@@ -39,10 +44,30 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from aloam_tpu_torch import pipeline
 from aloam_tpu_torch.config import AloamConfig
-from aloam_tpu_torch.graph import StepGraph
+from aloam_tpu_torch.graph import FnGraph, StepGraph
 from aloam_tpu_torch.neighbors import knn, smallest_k
 from aloam_tpu_torch.ops.gridmap import TableShard
 from aloam_tpu_torch.parallel.distributed import world
+
+
+def graphed(device_type: str, n_model: int, backend: str | None) -> bool:
+    """The capture rule of the sharded entry points: whether a call on a
+    ``device_type`` tensor captures a CUDA graph, for a mesh of
+    ``n_model`` model ranks whose model group runs ``backend``. On a CUDA
+    device it captures when the body issues no collective (n_model 1) or
+    the model group is NCCL's, whose collectives a graph holds; a gloo
+    model group with n_model > 1 runs eagerly, since gloo stages CUDA
+    tensors through the host, which no capture allows. A CPU call runs
+    eagerly. The rule is applied before any capture, from the group's
+    backend, never after a capture that failed: that one raises."""
+    return device_type == "cuda" and (n_model == 1 or backend == "nccl")
+
+
+def _model_backend(mesh: DeviceMesh) -> str | None:
+    """The backend of the mesh's model group; None for a group of one."""
+    if mesh.size(1) == 1:
+        return None
+    return dist.get_backend(mesh.get_group("model"))
 
 
 def make_mesh(n_data: int, n_model: int = 1,
@@ -138,10 +163,19 @@ def batched_step_fn(cfg: AloamConfig, mesh: DeviceMesh):
     with this rank's part of their map tables, (B_local, H / n_model, ·)
     (:func:`batched_init` with the mesh, or :func:`shard_tables`). The
     outputs are the data group's (:func:`gather_outputs` assembles the
-    global ones), the same on every rank of the model group. The map
-    tables update in place, as in ``pipeline.step_b``. It runs eagerly:
-    gloo's collectives cannot be captured into a CUDA graph, and the
-    capture of the NCCL path is not done yet.
+    global ones), the same on every rank of the model group.
+
+    It is a ``graph.StepGraph`` of the shape checks and ``pipeline.step_b``
+    with the rank's ``TableShard``, gated by ``pipeline.maps_at``. On a
+    CUDA state it captures the step into CUDA graphs and replays them
+    where :func:`graphed` allows (n_model 1, or an NCCL model group: the
+    table exchanges' ``all_reduce``s run inside the graph, and every rank
+    of the group captures and replays the same graphs); on a gloo model
+    group with n_model > 1, and on a CPU state, the same body runs
+    eagerly. The state is donated: the map tables update in place, as in
+    ``pipeline.step_b``, the state passed in is consumed, and a state the
+    function returned steps with no copy (JAX's ``batched_step_fn``
+    donates nothing). Its ``step`` attribute is the eager sharded step.
 
     Raises ``ValueError`` unless n_model divides both table sizes (as the
     JAX package asserts), on a rank outside the mesh, and on a state whose
@@ -166,7 +200,9 @@ def batched_step_fn(cfg: AloamConfig, mesh: DeviceMesh):
             raise ValueError(f"batched_step_fn: tables of {got} rows, this "
                              f"rank's part is {rows}")
         return pipeline.step_b(state, xyz, mask, cfg, shard=shard)
-    return f
+    return StepGraph(f, functools.partial(pipeline.maps_at, cfg),
+                     donate=True,
+                     capture=graphed("cuda", n_model, _model_backend(mesh)))
 
 
 def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
@@ -218,14 +254,24 @@ def sharded_knn(mesh: DeviceMesh, k: int = 5):
     dense ``knn`` over all M rows, indices included. (A query with fewer
     than k valid refs has +inf slots, whose indices follow the path each
     search took: the lowest masked rows from a dense block, 0 from
-    ``knn_streamed``.) Communication is O(Q·k·n_model), not O(M)."""
+    ``knn_streamed``.) Communication is O(Q·k·n_model), not O(M); with
+    one model rank there is none.
+
+    It is a ``graph.FnGraph``: on CUDA tensors it captures the search and
+    the merge, the ``all_gather``s included, where :func:`graphed` allows,
+    and replays them; otherwise it runs eagerly."""
+    n_model = mesh.size(1)
+
     def f(query, ref, ref_mask):
         group = mesh.get_group("model")
         d2, idx = knn(query, ref, ref_mask, k)
         idx = idx + mesh.get_local_rank("model") * ref.shape[0]
-        d_all, i_all = _all_gather(d2, group), _all_gather(idx, group)
+        if n_model == 1:
+            d_all, i_all = d2[None], idx[None]
+        else:
+            d_all, i_all = _all_gather(d2, group), _all_gather(idx, group)
         s, nq, _ = d_all.shape
         d_flat = d_all.movedim(0, 1).reshape(nq, s * k)
         i_flat = i_all.movedim(0, 1).reshape(nq, s * k)
         return smallest_k(d_flat, i_flat, k)
-    return f
+    return FnGraph(f, capture=graphed("cuda", n_model, _model_backend(mesh)))

@@ -102,14 +102,20 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    stream, 0.15 m on each of the B: ``DIST_ATE_LIMIT_1`` / ``_B``); the
    gates of tests/test_pipeline.py's distortion tests;
 11. parallel: ``aloam_tpu_torch.parallel`` over ``torch.distributed``.
-   (a) One NCCL rank, a (1, 1) mesh: ``batched_step_fn`` over phase 6's
-   16 streams and 8 frames bit-equal to phase 6's kernel run (poses and
-   metrics) with its launches, and ``sharded_knn`` equal to the dense
-   ``neighbors.knn`` (d2 and indices) at Q = 4096, M = 36864 on phase
-   6's map points. (b) Two ranks on the one card over gloo (NCCL refuses
-   two ranks on one GPU; gloo takes the CUDA tensors): two worker
-   processes (this script with ``--parallel-worker``, each with a time
-   limit) step 8 streams each over a (2, 1) mesh with the kernels, their
+   (a) One NCCL rank, a (1, 1) mesh, through the compiled entry points:
+   ``batched_step_fn`` over phase 6's 16 streams and 8 frames, captured
+   once (its body launching each of step_b's six kernels as one eager
+   frame does) and replayed 8 times, every output of every frame and the
+   final tables bit-equal to phase 6's eager kernel run; ``step_b`` with
+   the rank's ``TableShard`` of the NCCL group of one through a
+   ``graph.StepGraph``, its ``all_reduce``s captured in the graph,
+   bit-equal to phase 6 the same way; ``sharded_knn`` captured, equal to
+   the dense ``neighbors.knn`` (d2 and indices) at Q = 4096, M = 36864
+   on phase 6's map points. (b) Two ranks on the one card over gloo
+   (NCCL refuses two ranks on one GPU; gloo takes the CUDA tensors): two
+   worker processes (this script with ``--parallel-worker``, each with a
+   time limit) step 8 streams each over a (2, 1) mesh with the kernels
+   through the eager sharded step (``batched_step_fn(...).step``), their
    poses held against phase 6's at ``pose_agreement``'s tolerance (8
    streams get another ``lm_fused`` cluster plan than 16), each rank's
    scans/s and device busy time under torch.profiler beside the one
@@ -126,9 +132,14 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    ``merge_rows`` and ``assoc_cell`` inputs at frame 1 agree with their
    plain versions, two launches bit-equal. Scans/s, each rank's table
    MiB and the exchange ms a frame (every collective of the step timed
-   between two synchronizes, on a second pass). With ``--tables n`` the
-   script runs this phase alone over NCCL on a (1, n) mesh, a card a
-   rank, each rank held to step_b with whole tables on its own;
+   between two synchronizes, on a second pass through the eager step).
+   Over gloo ``batched_step_fn`` runs eagerly (``parallel.graphed``).
+   With ``--tables n`` the script runs this phase alone over NCCL on a
+   (1, n) mesh, a card a rank, each rank held to step_b with whole
+   tables on its own; there ``batched_step_fn`` is captured (one capture,
+   8 replays a rank, its all_reduces inside), bit-equal on every rank to
+   its eager body (outputs and the rank's tables), and eager and graphed
+   frames are timed in turn three times;
 12. graph: the compiled step (``aloam_tpu_torch/graph.py``, CUDA graphs).
    (a) One eager frame of step_b (B = 16) and one of step under
    ``torch.cuda.set_sync_debug_mode("error")``: no host synchronization.
@@ -1759,14 +1770,18 @@ def check_sharded_knn(tag, mesh, q, refs, mask):
 POSE_KEYS = ("q_odom", "t_odom", "q_map", "t_map", "metrics")
 
 
-def run_parallel(pipeline, mods, cfg, frames, outs_b, ms_b, busy_b,
-                 launches_b, knn_pts, device, card):
+def run_parallel(pipeline, mods, cfg, frames, outs_b, tables_b, ms_b,
+                 busy_b, launches_b, knn_pts, device, card):
     """Phase 11: the sharded step and the model-axis kNN.
 
-    (a) One rank, NCCL, a (1, 1) mesh: ``batched_step_fn`` over phase 6's
-    16 streams and 8 frames must give phase 6's kernel run bit for bit
-    (poses and metrics) with the same launches; ``sharded_knn`` equal to
-    the dense ``knn`` at Q = 4096, M = 36864 on phase 6's map points.
+    (a) One rank, NCCL, a (1, 1) mesh: the captured ``batched_step_fn``
+    over phase 6's 16 streams and 8 frames must give phase 6's kernel run
+    bit for bit (every output, the final tables ``tables_b``), with one
+    capture launching each kernel as one eager frame does and 8 replays;
+    so must ``step_b`` with the TableShard of the group of one through a
+    ``graph.StepGraph``, its all_reduces in the graph; the captured
+    ``sharded_knn`` equal to the dense ``knn`` at Q = 4096, M = 36864 on
+    phase 6's map points.
     (b) Two ranks on the one card over gloo (NCCL refuses two ranks on
     one GPU): two worker processes (``parallel_worker``) step 8 streams
     each over a (2, 1) mesh. Each rank's outputs must equal
@@ -1779,45 +1794,98 @@ def run_parallel(pipeline, mods, cfg, frames, outs_b, ms_b, busy_b,
     they do not). Then ``sharded_knn`` over a (1, 2)
     mesh, equal to the dense knn. A worker that exits non-zero or
     outlives its time limit fails the run."""
+    import functools
+
     import torch
-    import torch.distributed as dist
-    from aloam_tpu_torch.parallel import batched_step_fn, distributed, make_mesh
+    from aloam_tpu_torch import graph as gm
+    from aloam_tpu_torch.ops import gridmap
+    from aloam_tpu_torch.ops.gridmap import TableShard
+    from aloam_tpu_torch.parallel import (batched_step_fn, distributed,
+                                          make_mesh, sharded_knn)
 
     q, refs, mask, n_refs = knn_pts
     say(f"[parallel] kNN points from the [step] map: {KNN_Q} queries "
         f"(stream 0's corner map), {n_refs} of {KNN_M} refs real (the surf "
         f"maps of streams 0, 1, ...)")
-    # (a) a world of one NCCL rank
+    # (a) a world of one NCCL rank: the compiled entry points
     distributed.initialize(
         init_method=f"tcp://127.0.0.1:{distributed.free_port()}",
         world_size=1, rank=0, backend="nccl")
     try:
         mesh = make_mesh(1, 1, "cuda")
         f = batched_step_fn(cfg, mesh)
-        reset_counts(mods)
-        outs, ms, st = run_frames(lambda s, x, m, c: f(s, x, m), pipeline,
-                                  cfg, frames, device)
+        seen = []
+        gm.captures = gm.replays = 0
+        with graph_spy(mods, seen):
+            outs, ms, st = run_frames(lambda s, x, m, c: f(s, x, m),
+                                      pipeline, cfg, frames, device)
+        same_tables("[parallel] batched_step_fn", st.map, tables_b)
         del st
-        got = {n: launch_count(mods, n) for n in STEP_KERNELS}
-        if got != {n: launches_b[n] for n in STEP_KERNELS}:
-            fail(f"[parallel] launches {got}, phase 6's "
-                 f"{ {n: launches_b[n] for n in STEP_KERNELS} }")
-        for fr, (a, b) in enumerate(zip(outs, outs_b)):
-            for k in POSE_KEYS:
-                if not np.array_equal(a[k], b[k]):
-                    fail(f"[parallel] one rank: frame {fr} {k} differs from "
-                         f"phase 6 by {np.abs(a[k] - b[k]).max():.3g}")
-        say(f"[parallel] one NCCL rank, mesh (1, 1): batched_step_fn over "
-            f"{B} streams x {len(frames)} frames bit-equal to [step] (poses "
-            f"and metrics), launches {got}; {np.mean(ms[1:]):.2f} ms/frame "
-            f"= {B * 1e3 / np.mean(ms[1:]):.1f} scans/s ({card})")
+        same_frames("[parallel] one rank: batched_step_fn", outs, outs_b)
+        if (gm.captures, gm.replays, len(seen)) != (1, N_FRAMES, 1):
+            fail(f"[parallel] batched_step_fn: {gm.captures} captures, "
+                 f"{gm.replays} replays")
+        per_frame = {n: launches_b[n] // N_FRAMES for n in STEP_KERNELS}
+        check_capture("[parallel] batched_step_fn", seen[0], per_frame,
+                      STEP_KERNELS)
+        say(f"[parallel] one NCCL rank, mesh (1, 1): batched_step_fn "
+            f"captured once ({seen[0]['nodes']} nodes; the capture "
+            f"launched {seen[0]['launches']}) and replayed {gm.replays} "
+            f"times over {B} streams x {len(frames)} frames: every output "
+            f"and the final tables bit-equal to [step]; "
+            f"{np.mean(ms[1:]):.2f} ms/frame = "
+            f"{B * 1e3 / np.mean(ms[1:]):.1f} scans/s ({card})")
+
+        # step_b with the one rank's TableShard: its all_reduces over the
+        # NCCL group of one go into the graph
+        group = mesh.get_group("model")
+        fs = gm.StepGraph(
+            lambda s, x, m: pipeline.step_b(
+                s, x, m, cfg, shard=TableShard(group, 0, 1)),
+            functools.partial(pipeline.maps_at, cfg))
+        collectives, group_sum = [], gridmap._group_sum
+
+        def counted(t, shard):
+            if torch.cuda.is_current_stream_capturing():
+                collectives.append(t.numel() * t.element_size())
+            return group_sum(t, shard)
+        seen.clear()
+        gm.captures = gm.replays = 0
+        with graph_spy(mods, seen), \
+                Patched([(gridmap, "_group_sum", counted)]):
+            outs, ms, st = run_frames(lambda s, x, m, c: fs(s, x, m),
+                                      pipeline, cfg, frames, device)
+        same_tables("[parallel] TableShard(1 rank)", st.map, tables_b)
+        del st
+        same_frames("[parallel] one rank: TableShard step", outs, outs_b)
+        if (gm.captures, gm.replays) != (1, N_FRAMES) or not collectives:
+            fail(f"[parallel] TableShard step: {gm.captures} captures, "
+                 f"{gm.replays} replays, {len(collectives)} collectives "
+                 f"captured")
+        check_capture("[parallel] TableShard step", seen[0], per_frame,
+                      STEP_KERNELS)
+        say(f"[parallel] one NCCL rank: step_b with TableShard(the group "
+            f"of one, 0, 1) captured once with {len(collectives)} "
+            f"all_reduces in the graph ({sum(collectives) / 1e6:.1f} MB a "
+            f"frame; {seen[0]['nodes']} nodes) and replayed {gm.replays} "
+            f"times: every output and the final tables bit-equal to "
+            f"[step]; {np.mean(ms[1:]):.2f} ms/frame = "
+            f"{B * 1e3 / np.mean(ms[1:]):.1f} scans/s ({card})")
+
         tq, tr, tm = (torch.from_numpy(a).to(device) for a in (q, refs, mask))
+        gm.captures = gm.replays = 0
         sk, dk = check_sharded_knn("[parallel] one rank", mesh, tq, tr, tm)
+        # check_sharded_knn's own call and its timed function each capture
+        if gm.captures != 2:
+            fail(f"[parallel] sharded_knn: {gm.captures} captures")
+        eager = host_ms(lambda: sharded_knn(mesh, k=5).fn(tq, tr, tm))
         say(f"[parallel] one NCCL rank: sharded_knn (Q={KNN_Q}, M={KNN_M}, "
-            f"k=5) equal to the dense knn; {sk:.3f} ms, dense {dk:.3f} ms "
-            f"({card})")
+            f"k=5) captured and equal to the dense knn; {sk:.3f} ms a "
+            f"replay, eager {eager:.3f} ms, dense {dk:.3f} ms ({card})")
+        del f, fs             # their graphs go before the group
+        seen.clear()
     finally:
-        dist.destroy_process_group()
+        distributed.finish()
 
     # (b) two gloo ranks sharing the card
     with tempfile.TemporaryDirectory() as tmp:
@@ -1935,7 +2003,10 @@ def parallel_worker(tmp: str) -> None:
                   for f in range(N_FRAMES)]
         del xyz, mask
         mesh = make_mesh(size, 1, device.type)
-        f = batched_step_fn(cfg, mesh)
+        # the eager sharded step: this phase records kernel inputs and
+        # times eager frames (on a (2, 1) mesh, with no collective in the
+        # step, batched_step_fn itself would capture)
+        f = batched_step_fn(cfg, mesh).step
         reset_counts(mods)
         torch.cuda.reset_peak_memory_stats(device)
         dist.barrier()
@@ -2031,7 +2102,7 @@ def parallel_worker(tmp: str) -> None:
             f"to step_b on them in this process, gather_outputs in stream "
             f"order, sharded_knn equal to the dense knn")
     finally:
-        dist.destroy_process_group()
+        distributed.finish()
 
 
 def start_worker(tmp: str, backend: str = "gloo"):
@@ -2101,7 +2172,8 @@ def run_tables(outs_b, card, n: int = 2, backend: str = "gloo"):
     one = B * 1e3 / float(np.mean(ranks[0]["whole_ms"][1:]))
     for r, rk in enumerate(ranks):
         ms = float(np.mean(rk["ms"][1:]))
-        say(f"{tag} rank {r}: {B * 1e3 / ms:.1f} scans/s ({ms:.2f} ms/frame "
+        say(f"{tag} rank {r}: {B * 1e3 / ms:.1f} scans/s "
+            f"({'graphed' if rk['graphs'][0] else 'eager'}, {ms:.2f} ms/frame "
             f"over frames 1-{N_FRAMES - 1}) against {one:.1f} for step_b "
             f"with whole tables on rank 0's card in the same worker; its "
             f"tables {rk['part'] / 2 ** 20:.2f} MiB "
@@ -2111,6 +2183,16 @@ def run_tables(outs_b, card, n: int = 2, backend: str = "gloo"):
             f"of a {rk['timed_ms']:.2f} ms frame with them timed; peak "
             f"device memory {rk['peak'] / 2 ** 30:.3f} GiB; launches "
             f"{rk['launches']} ({card})")
+    for r, rk in enumerate(ranks):
+        if not rk["turns"]["graph"]:
+            continue
+        rate = {k: ", ".join(f"{B * 1e3 / t:.1f}" for t in v)
+                for k, v in rk["turns"].items()}
+        say(f"{tag} rank {r}: the captured step ({rk['graphs'][0]} capture, "
+            f"{rk['graphs'][1]} replays; the capture launched "
+            f"{rk['in_graph']}) bit-equal to its eager body; frames "
+            f"1-{N_FRAMES - 1} in turn three times: eager {rate['eager']} "
+            f"scans/s, graphed {rate['graph']} scans/s a rank ({card})")
     said = "[step] and step_b" if outs_b is not None else "step_b"
     say(f"{tag} the map tables split over {n} model ranks: {N_FRAMES} "
         f"frames of {B} streams bit-equal to {said} with whole tables on "
@@ -2133,10 +2215,12 @@ def table_worker(tmp: str, backend: str) -> None:
     a second launch. Writes rank<r>.json and rank<r>.npz to ``dir``."""
     import torch
     import torch.distributed as dist
+    from aloam_tpu_torch import graph as gm
     from aloam_tpu_torch import pipeline
     from aloam_tpu_torch.ops import gridmap
     from aloam_tpu_torch.parallel import (batched_init, batched_step_fn,
-                                          dryrun, gather_tables, make_mesh)
+                                          distributed, dryrun, gather_tables,
+                                          make_mesh)
 
     size, rank, device, card = start_worker(tmp, backend)
     tag = f"[tables {backend} x{size}]"
@@ -2150,7 +2234,10 @@ def table_worker(tmp: str, backend: str) -> None:
                   for f in range(N_FRAMES)]
         del xyz, mask
         mesh = make_mesh(1, size, device.type)
+        # the compiled sharded step (captured over NCCL, eager over gloo:
+        # parallel.graphed) and its eager body
         f = batched_step_fn(cfg, mesh)
+        eager = f.step
 
         def fresh():
             st = batched_init(cfg, B, device, mesh)
@@ -2162,27 +2249,39 @@ def table_worker(tmp: str, backend: str) -> None:
 
         reset_counts(mods)
         torch.cuda.reset_peak_memory_stats(device)
+        gm.captures = gm.replays = 0
+        seen = []
         dist.barrier()
         st, part, whole = fresh()
         ms, arrays = [], {}
-        for fr, (x, m) in enumerate(frames):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, out = f(st, x, m)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            for k in POSE_KEYS:
-                arrays[f"{k}_{fr}"] = getattr(out, k).cpu().numpy()
+        with graph_spy(mods, seen):
+            for fr, (x, m) in enumerate(frames):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, out = f(st, x, m)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                for k in POSE_KEYS:
+                    arrays[f"{k}_{fr}"] = getattr(out, k).cpu().numpy()
         peak = torch.cuda.max_memory_allocated(device)
         launches = {n: launch_count(mods, n) for n in STEP_KERNELS}
         if min(launches.values()) < 1:
             fail(f"{tag} rank {rank}: a kernel was never launched: "
                  f"{launches}")
+        graphs = (gm.captures, gm.replays)
+        if graphs != ((1, N_FRAMES) if f.capture else (0, 0)):
+            fail(f"{tag} rank {rank}: {graphs[0]} captures, {graphs[1]} "
+                 f"replays ({backend})")
+        in_graph = seen[0]["launches"] if seen else {}
+        if f.capture and min(in_graph[n] for n in STEP_KERNELS) < 1:
+            fail(f"{tag} rank {rank}: the capture launched {in_graph}")
         try:
             dryrun.check_partition(st, cfg, mesh, B)
         except RuntimeError as e:
             fail(f"{tag} rank {rank} after {len(frames)} frames: {e}")
         tables = gather_tables(st, mesh).map
+        own = [t.clone() for t in (*st.map.corner, *st.map.surf)] \
+            if f.capture else None
         del st
         whole_ms = []
         if rank == 0:
@@ -2204,6 +2303,45 @@ def table_worker(tmp: str, backend: str) -> None:
         del tables
         dist.barrier()
 
+        # the captured step against its eager body: the first eager pass
+        # bit-equal to the graphed one (outputs, this rank's tables), then
+        # eager and graphed in turn three times
+        turns = {"eager": [], "graph": []}
+        for turn in range(3 if f.capture else 0):
+            for name, fn in (("eager", eager), ("graph", f)):
+                dist.barrier()
+                st, _, _ = fresh()
+                t_ms = []
+                for fr, (x, m) in enumerate(frames):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st, out = fn(st, x, m)
+                    torch.cuda.synchronize()
+                    t_ms.append((time.perf_counter() - t0) * 1e3)
+                    if turn == 0 and name == "eager" and not all(
+                            same_bits(getattr(out, k).cpu().numpy(),
+                                      arrays[f"{k}_{fr}"])
+                            for k in POSE_KEYS):
+                        fail(f"{tag} rank {rank} frame {fr}: the captured "
+                             f"step differs from its eager body")
+                if turn == 0 and name == "eager":
+                    if not all(torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32))
+                               for a, b in zip(
+                                   (*st.map.corner, *st.map.surf), own)):
+                        fail(f"{tag} rank {rank}: the captured step's table "
+                             f"part differs from its eager body's")
+                    own = None
+                turns[name].append(float(np.mean(t_ms[1:])))
+                del st
+        if f.capture and gm.captures != 1:
+            fail(f"{tag} rank {rank}: {gm.captures} captures after the "
+                 f"turns")
+        # a graph with NCCL collectives must go before its process group
+        # (distributed.finish)
+        f = fn = None
+        seen.clear()
+
         # every collective of the step (gridmap._group_sum), timed
         timed = {"ms": 0.0, "n": 0, "bytes": 0}
         group_sum = gridmap._group_sum
@@ -2223,7 +2361,7 @@ def table_worker(tmp: str, backend: str) -> None:
             for x, m in frames:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                st, _ = f(st, x, m)
+                st, _ = eager(st, x, m)
                 torch.cuda.synchronize()
                 frame_ms.append((time.perf_counter() - t0) * 1e3)
         del st
@@ -2232,12 +2370,12 @@ def table_worker(tmp: str, backend: str) -> None:
         # frame 1's merge_rows and assoc_cell inputs on rank 0; both ranks
         # drive the step, which exchanges rows
         st, _, _ = fresh()
-        st, _ = f(st, *frames[0])
+        st, _ = eager(st, *frames[0])
         if rank == 0:
             recorded = record_inputs(mods, TABLE_KERNELS,
-                                     lambda: f(st, *frames[1]))
+                                     lambda: eager(st, *frames[1]))
         else:
-            f(st, *frames[1])
+            eager(st, *frames[1])
         del st
         if rank == 0:
             check_recorded(mods, recorded, {}, card)
@@ -2249,7 +2387,8 @@ def table_worker(tmp: str, backend: str) -> None:
         np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
             json.dump(dict(ms=ms, whole_ms=whole_ms, peak=peak,
-                           launches=launches, part=part,
+                           launches=launches, graphs=graphs,
+                           in_graph=in_graph, turns=turns, part=part,
                            whole=whole, exchange_ms=timed["ms"] / n_fr,
                            exchanges=timed["n"] / n_fr,
                            exchange_bytes=timed["bytes"] / n_fr,
@@ -2258,7 +2397,7 @@ def table_worker(tmp: str, backend: str) -> None:
             f"streams, 1/{size} of every map table, {n_fr} frames; the "
             f"partition holds")
     finally:
-        dist.destroy_process_group()
+        distributed.finish()
 
 
 def tables_main(n: int) -> None:
@@ -2369,8 +2508,15 @@ def same_tables(tag, map_state, want) -> None:
     for got, ref in zip((*map_state.corner, *map_state.surf),
                         (*want[0], *want[1]), strict=True):
         if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
-            fail(f"[graph] {tag}: the final map tables are not bit-equal to "
-                 f"the eager run's")
+            fail(f"{tag}: the final map tables are not bit-equal to the "
+                 f"eager run's")
+
+
+def same_frames(tag, outs, ref) -> None:
+    """Every output of every frame of two run_frames runs bit-equal."""
+    for f, (o, r) in enumerate(zip(outs, ref, strict=True)):
+        if o.keys() != r.keys() or not all(same_bits(o[k], r[k]) for k in r):
+            fail(f"{tag}: frame {f} is not bit-equal to the eager run")
 
 
 def check_capture(tag, rec, want, names) -> None:
@@ -2499,7 +2645,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
         outs, st = stepped(parallel.batched_step_jit(cfg), pipeline, cfg,
                            frames, device, B)
     same_outputs("step_b", outs, outs_b)
-    same_tables("step_b", st.map, tables_b)
+    same_tables("[graph] step_b", st.map, tables_b)
     del st
     if (gm.captures, gm.replays, len(seen)) != (1, N_FRAMES, 1):
         fail(f"[graph] step_b: {gm.captures} captures, {gm.replays} replays")
@@ -2519,7 +2665,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
         outs_c, st_c = stepped(pipeline.make_step_fn(cfg_1), pipeline,
                                cfg_1, single, device, 1)
     same_outputs("step", outs_c, outs_1)
-    same_tables("step", st_c.map, tables_1)
+    same_tables("[graph] step", st_c.map, tables_1)
     check_capture("step", seen[0], per_frame["step"], SINGLE_KERNELS)
     rec = seen[0]
     c2 = cfg_1.replace(mapping_skip_frame=2)
@@ -2527,7 +2673,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
     fn2 = pipeline.make_step_fn(c2)
     outs2, st2 = stepped(fn2, pipeline, c2, single[:4], device, 1)
     same_outputs("step at mapping_skip_frame 2", outs2, want2[0])
-    same_tables("step at mapping_skip_frame 2", st2.map,
+    same_tables("[graph] step at mapping_skip_frame 2", st2.map,
                 (want2[2].map.corner, want2[2].map.surf))
     n_graphs = [len(slot.graphs) for slot in fn2.slots.values()]
     if n_graphs != [2]:
@@ -2559,7 +2705,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
     same_outputs("run_sequence(scan=True)", [
         pipeline.SlamOutputs(*(None if o is None else o[f] for o in outs_d))
         for f in range(N_FRAMES)], outs_c)
-    same_tables("run_sequence(scan=True)", st_d.map,
+    same_tables("[graph] run_sequence(scan=True)", st_d.map,
                 (st_c.map.corner, st_c.map.surf))
     check_capture("run_sequence(scan=True)", seen[0], per_frame["step"],
                   SINGLE_KERNELS)
@@ -2717,8 +2863,8 @@ def main() -> None:
     launches["lm_fused_s"] = dist_launches["lm_fused_s"]
 
     # ---- 11. streams and the kNN split over torch.distributed ranks -------
-    run_parallel(pipeline, mods, cfg, frames, outs_b, ms_b, busy_b,
-                 launches, knn_pts, device, card)
+    run_parallel(pipeline, mods, cfg, frames, outs_b, tables_b, ms_b,
+                 busy_b, launches, knn_pts, device, card)
     run_tables(outs_b, card)
 
     # ---- 12. the compiled step: CUDA graphs -------------------------------

@@ -16,11 +16,16 @@ Run as ``python tests/_torch_mp_worker.py <mode> <dir>`` with
   ``step_out_<rank>.npz``.
 * ``table``: ``batched_step_fn`` over a (world / 2, 2) mesh, each model
   rank holding half of its data group's map tables, on the data group's
-  streams of ``<dir>/step_in.npz``; writes to ``table_out_<rank>.npz``
-  the data group's outputs of every frame (not gathered), the shapes of
-  the rank's table leaves, the whole tables (``gather_tables``) after
-  the last frame, and ``round_trip``: whether ``shard_tables`` of them
-  gives the rank's own part back.
+  streams of ``<dir>/step_in.npz``, each frame from the state the
+  function returned, then the same frames through its eager body
+  (``.step``) from a fresh state; writes to ``table_out_<rank>.npz`` the
+  data group's outputs of every frame of both runs (not gathered; the
+  eager body's as ``eager_<name>_<f>``), ``captured`` (whether the
+  function would capture on a card: not on gloo), ``eager_tables_equal``
+  (the two runs' table parts bit for bit), the shapes of the rank's
+  table leaves, the whole tables (``gather_tables``) after the last
+  frame, and ``round_trip``: whether ``shard_tables`` of them gives the
+  rank's own part back.
 * ``mp``: an ``all_reduce`` of rank + 1 over the "data" axis, then one
   sharded step on this rank's own stream; prints ``MP_OK <rank> <sum>``.
 
@@ -95,13 +100,20 @@ def run_table(d: str, size: int, rank: int) -> None:
     local = xyz.shape[1] // mesh.size(0)
     off = mesh.get_local_rank("data") * local
     step = batched_step_fn(CFG, mesh)
-    st = batched_init(CFG, local, "cpu", mesh)
-    out = {}
-    for f in range(xyz.shape[0]):
-        st, o = step(st, torch.from_numpy(xyz[f, off:off + local]),
-                     torch.from_numpy(mask[f, off:off + local]))
-        for name in OUTPUTS:
-            out[f"{name}_{f}"] = getattr(o, name).numpy()
+    out, states = {"captured": np.array(step.capture)}, {}
+    for run, fn in (("", step), ("eager_", step.step)):
+        st = batched_init(CFG, local, "cpu", mesh)
+        for f in range(xyz.shape[0]):
+            st, o = fn(st, torch.from_numpy(xyz[f, off:off + local]),
+                       torch.from_numpy(mask[f, off:off + local]))
+            for name in OUTPUTS:
+                out[f"{run}{name}_{f}"] = getattr(o, name).numpy()
+        states[run] = st
+    st, eager = states[""], states["eager_"]
+    out["eager_tables_equal"] = np.array(all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip((*st.map.corner, *st.map.surf),
+                        (*eager.map.corner, *eager.map.surf))))
     whole = gather_tables(st, mesh)
     back = shard_tables(whole, mesh).map
     out["round_trip"] = np.array(all(
@@ -158,7 +170,7 @@ def main() -> None:
         else:
             raise ValueError(f"mode {mode!r}")
     finally:
-        dist.destroy_process_group()
+        distributed.finish()
 
 
 if __name__ == "__main__":

@@ -287,7 +287,10 @@ def test_sharded_step_model_axis_matches_whole_and_jax(n_data, whole_step,
     hold against JAX's batched_step_fn on make_mesh(n_data, 2) of the
     virtual CPU devices at tests/test_torch_mapping.py's bounds (q_odom /
     t_odom 2e-3 / 5e-3, the map and high-frequency poses 2.5e-2; feature
-    counts and map_solved exact)."""
+    counts and map_solved exact). batched_step_fn is the compiled entry
+    point (a graph.StepGraph, stepped from the state it returned), which
+    on a gloo model group runs eagerly (parallel.graphed); every rank's
+    outputs and table part equal its eager body's bit for bit."""
     if len(jax.devices()) < 2 * n_data:
         pytest.skip(f"needs {2 * n_data} JAX devices")
     xyz, mask, want, st = whole_step
@@ -298,6 +301,14 @@ def test_sharded_step_model_axis_matches_whole_and_jax(n_data, whole_step,
     local = 4 // n_data
     for r, o in enumerate(outs):
         assert o.pop("round_trip"), r
+        assert not o.pop("captured"), r      # gloo, n_model 2: eager
+        assert o.pop("eager_tables_equal"), r
+        for name in OUTPUTS:
+            for f in range(3):
+                np.testing.assert_array_equal(
+                    o.pop(f"eager_{name}_{f}").view(np.uint8),
+                    o[f"{name}_{f}"].view(np.uint8),
+                    f"rank {r}: the eager body's {name} {f}")
         for kind, h in (("corner", CFG.map_table_corner),
                         ("surf", CFG.map_table_surf)):
             for leaf in ("pts", "aux"):
@@ -426,7 +437,8 @@ def test_dryrun_multichip(monkeypatch, capsys):
     """dryrun_multichip over 2 gloo ranks on the CPU: two distinct streams
     a rank (64 lines) for 3 frames, the gathered trajectories against the
     unsharded step on rank 0, then sharded_knn over a (1, 2) mesh equal
-    to the dense knn; its three OK lines."""
+    to the dense knn; its OK lines, the graphs line saying that nothing
+    was captured on the CPU."""
     monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     out = dryrun_multichip(2, "cpu", timeout=_TIMEOUT)
@@ -436,6 +448,7 @@ def test_dryrun_multichip(monkeypatch, capsys):
         assert line in out, out
     assert "max |sharded - unsharded| = 0.00e+00 m" in out, out
     assert "map tables partitioned OK" in out, out
+    assert "graphs OK: captures=0 replays=0 (eager on cpu)" in out, out
 
 
 def test_dryrun_multichip_model_axis(monkeypatch):
