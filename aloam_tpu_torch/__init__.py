@@ -18,10 +18,14 @@ Ported so far: the whole batched step (``pipeline.step_b``: scan
 registration, feature extraction, scan-to-scan odometry and scan-to-map
 mapping on the persistent voxel-hash map), the single-stream step with the
 reference's exact per-round map search (``pipeline.step``), its
-checkpoints (``utils/checkpoint.py``), the CLI (``cli.py``), and the
+checkpoints (``utils/checkpoint.py``), the CLI (``cli.py``), the
 scaling over ``torch.distributed`` ranks (``parallel``: streams split
 over the ranks, the sharded neighbour search, the runtime and the
-multi-rank dry run).
+multi-rank dry run), the compiled steps as CUDA graphs (``graph.py``),
+the bench (``python -m aloam_tpu_torch.bench``, its scenes made by
+``python -m aloam_tpu_torch.pregen_streams``), and the JAX package's
+single-stream API (``register_scan``, ``extract_features``,
+``odometry_step``, ...: the batched functions at B = 1).
 """
 
 from aloam_tpu_torch.config import AloamConfig, PRESETS  # noqa: F401

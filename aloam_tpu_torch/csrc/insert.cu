@@ -32,11 +32,13 @@
 // table: the row is read where it lives (8 planes, one 16-byte load a lane
 // each, lane l holding slots 4l .. 4l+3) and written back there; a row
 // with cnt == 0 leaves at once and touches no table byte. The point list
-// is loaded once (lane p holds point p) and broadcast with shuffles. The
-// merge is one pass over the points (a vote per point into a bit mask,
-// one OR reduction); the appends need no loop: empty slots rank by ballot
-// popcounts, occupied ones by counting smaller (priority, slot) pairs, and
-// only when the appends outrun the empty slots.
+// is loaded once in words of 32 points (lane l holds point 32 w + l of
+// word w; one word for P <= 32, four up to 128) and broadcast with
+// shuffles. The merge is one pass over the points (a vote per point into
+// a bit mask a word, one OR reduction each); the appends need no loop:
+// empty slots rank by ballot popcounts, occupied ones by counting smaller
+// (priority, slot) pairs, and only when the appends outrun the empty
+// slots.
 //
 // In place without races: within a stream every used row names its own
 // bucket (the insert's cids are dense per distinct bucket id, and points
@@ -80,6 +82,34 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int n) {
   return base;
 }
 
+// The position of the n-th (from 0) set bit of the NW-word mask m (word w
+// holding points 32 w .. 32 w + 31); n below its popcount.
+template <int NW>
+__device__ __forceinline__ int nth_point(const unsigned (&m)[NW], int n) {
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int c = __popc(m[w]);
+    if (n < c) return 32 * w + nth_set_bit(m[w], n);
+    n -= c;
+  }
+  return 0;
+}
+
+// Point src's value of q (lane l holding point 32 w + l in q[w]), to every
+// lane; src uniform or not, every lane shuffles every word.
+template <int NW>
+__device__ __forceinline__ float point_of(const float (&q)[NW], int src) {
+  float out = 0.f;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const float t = __shfl_sync(kFull, q[w], src & 31);
+    if ((src >> 5) == w) out = t;
+  }
+  return out;
+}
+
+// NW words of 32 points: P <= 32 NW.
+template <int NW>
 __global__ void merge_rows_kernel(
     float* __restrict__ pts, int* __restrict__ aux,
     const int* __restrict__ slot_h, const int* __restrict__ cnt,
@@ -92,19 +122,26 @@ __global__ void merge_rows_kernel(
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (r >= n) return;  // the whole warp leaves together
-  // the count, the bucket and the point list (lane p holding point p) in
-  // one round trip; a row's table address waits only on its bucket
+  // the count, the bucket and the point list (lane l holding point
+  // 32 w + l of word w) in one round trip; a row's table address waits
+  // only on its bucket
   const int n_p = min(cnt[r], cap_p);
   const int hb = slot_h[r];
-  float qx = 0.f, qy = 0.f, qz = 0.f, qi = 0.f;
-  int qv = 0;
-  if (lane < cap_p) {
-    const size_t rp = (size_t)r * cap_p + lane;
-    qx = px[rp];
-    qy = py[rp];
-    qz = pz[rp];
-    qi = pi[rp];
-    qv = pvox[rp];
+  float qx[NW], qy[NW], qz[NW], qi[NW];
+  int qv[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    qx[w] = qy[w] = qz[w] = qi[w] = 0.f;
+    qv[w] = 0;
+    const int p = 32 * w + lane;
+    if (p < cap_p) {
+      const size_t rp = (size_t)r * cap_p + p;
+      qx[w] = px[rp];
+      qy[w] = py[rp];
+      qz[w] = pz[rp];
+      qi[w] = pi[rp];
+      qv[w] = pvox[rp];
+    }
   }
   if (n_p <= 0) {  // an unused row
     if (lane == 0) stats[r] = stats[n + r] = stats[2 * n + r] = 0;
@@ -162,27 +199,37 @@ __global__ void merge_rows_kernel(
   }
 
   // ---- merge: each slot keeps its last matching point --------------------
-  int best[4] = {-1, -1, -1, -1};
-  unsigned hit = 0;
-#pragma unroll 4
-  for (int p = 0; p < n_p; ++p) {
-    const int v = __shfl_sync(kFull, qv, p);
+  // n_w[w]: the points of word w below n_p
+  int n_w[NW];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (occ[j] && vx[j] == v) {
-        best[j] = p;
-        hit |= 1u << p;
+  for (int w = 0; w < NW; ++w) n_w[w] = min(max(n_p - 32 * w, 0), 32);
+  int best[4] = {-1, -1, -1, -1};
+  unsigned has_match[NW];
+  int n_match = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    unsigned hit = 0;
+#pragma unroll 4
+    for (int p = 0; p < n_w[w]; ++p) {
+      const int v = __shfl_sync(kFull, qv[w], p);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (occ[j] && vx[j] == v) {
+          best[j] = 32 * w + p;
+          hit |= 1u << p;
+        }
       }
     }
+    has_match[w] = __reduce_or_sync(kFull, hit);
+    n_match += __popc(has_match[w]);
   }
-  const unsigned has_match = __reduce_or_sync(kFull, hit);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int src = max(best[j], 0);
-    const float mx = __shfl_sync(kFull, qx, src);
-    const float my = __shfl_sync(kFull, qy, src);
-    const float mz = __shfl_sync(kFull, qz, src);
-    const float mi = __shfl_sync(kFull, qi, src);
+    const float mx = point_of(qx, src);
+    const float my = point_of(qy, src);
+    const float mz = point_of(qz, src);
+    const float mi = point_of(qi, src);
     if (best[j] >= 0) {
       x[j] = 0.5f * (x[j] + mx);
       y[j] = 0.5f * (y[j] + my);
@@ -192,9 +239,15 @@ __global__ void merge_rows_kernel(
   }
 
   // ---- appends: the a-th unmatched point takes the slot of rank a --------
-  const unsigned valid = n_p >= 32 ? kFull : (1u << n_p) - 1u;
-  const unsigned app = valid & ~has_match;
-  const int n_take = min(__popc(app), bk);
+  unsigned app[NW];
+  int n_app = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const unsigned valid = n_w[w] >= 32 ? kFull : (1u << n_w[w]) - 1u;
+    app[w] = valid & ~has_match[w];
+    n_app += __popc(app[w]);
+  }
+  const int n_take = min(n_app, bk);
   // empty slots come first, in slot order: slot 4l + j follows the empty
   // slots of the lanes below l and its own lane's below j
   const unsigned below = (1u << lane) - 1u;
@@ -232,11 +285,11 @@ __global__ void merge_rows_kernel(
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const bool take = rank[j] < n_take;
-    const int src = take ? nth_set_bit(app, rank[j]) : 0;
-    const float ax = __shfl_sync(kFull, qx, src);
-    const float ay = __shfl_sync(kFull, qy, src);
-    const float az = __shfl_sync(kFull, qz, src);
-    const float ai = __shfl_sync(kFull, qi, src);
+    const int src = take ? nth_point(app, rank[j]) : 0;
+    const float ax = point_of(qx, src);
+    const float ay = point_of(qy, src);
+    const float az = point_of(qz, src);
+    const float ai = point_of(qi, src);
     if (take) {
       x[j] = ax;
       y[j] = ay;
@@ -268,7 +321,7 @@ __global__ void merge_rows_kernel(
         make_int4(vx[0], vx[1], vx[2], vx[3]);
   }
   if (lane == 0) {
-    stats[r] = __popc(has_match);
+    stats[r] = n_match;
     stats[n + r] = n_take;
     stats[2 * n + r] = max(n_take - n_empty, 0);
   }
@@ -281,7 +334,7 @@ __global__ void merge_rows_kernel(
 // (16-byte aligned, bk a multiple of 4, at most 128). Bucket rows, n =
 // B * cap_c, row r of stream r / cap_c: slot_h (n,) i32 its bucket, cnt
 // (n,) i32 its points, px, py, pz, pi (n, cap_p) f32 and pvox (n, cap_p)
-// i32 the points (cap_p <= 32); center (B, 3) i32 pose cells; window (3,)
+// i32 the points (cap_p <= 128); center (B, 3) i32 pose cells; window (3,)
 // i32. stats (3, n) i32 [merged, appended, evicted]. Returns the
 // cudaError_t of the launch.
 extern "C" int aloam_merge_rows(float* pts, int* aux, const int* slot_h,
@@ -295,9 +348,14 @@ extern "C" int aloam_merge_rows(float* pts, int* aux, const int* slot_h,
   if (n <= 0) return 0;
   const int threads = 32 * kWarpsPerBlock;
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  merge_rows_kernel<<<blocks, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      pts, aux, slot_h, cnt, px, py, pz, pi, pvox, center, window, stats, n,
-      h_rows, cap_c, bk, cap_p, inv_cell, inv_leaf);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cap_p <= 32)
+    merge_rows_kernel<1><<<blocks, threads, 0, s>>>(
+        pts, aux, slot_h, cnt, px, py, pz, pi, pvox, center, window, stats,
+        n, h_rows, cap_c, bk, cap_p, inv_cell, inv_leaf);
+  else
+    merge_rows_kernel<4><<<blocks, threads, 0, s>>>(
+        pts, aux, slot_h, cnt, px, py, pz, pi, pvox, center, window, stats,
+        n, h_rows, cap_c, bk, cap_p, inv_cell, inv_leaf);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,3 +1,7 @@
-from aloam_tpu_torch.frontend.registration import register_scan_b  # noqa: F401
-from aloam_tpu_torch.frontend.features import extract_features_b  # noqa: F401
-from aloam_tpu_torch.frontend.voxel import voxel_downsample_rings  # noqa: F401
+from aloam_tpu_torch.frontend.registration import (  # noqa: F401
+    register_scan, register_scan_b)
+from aloam_tpu_torch.frontend.features import (  # noqa: F401
+    extract_features, extract_features_b)
+from aloam_tpu_torch.frontend.voxel import (  # noqa: F401
+    voxel_downsample_masked, voxel_downsample_masked_b,
+    voxel_downsample_rings)

@@ -8,7 +8,8 @@ candidates and NMS-marking ±5 ring neighbours per pick (gap-stopped at
 points is exactly repeated selection of the extremum of the still-eligible
 curvature, so the walk needs no sort: each pick is one masked extremum
 (ops/select.py). Ties go to the lowest index; the 4th flat pick is labelled
-but marks nothing (:358-362).
+but marks nothing (:358-362). ``extract_features`` is the single-stream
+API: :func:`extract_features_b` at B = 1, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend.voxel import voxel_downsample_rings
 from aloam_tpu_torch.ops import select as select_op
 from aloam_tpu_torch.types import PointCloud, RingCloud, ScanFeatures
-from aloam_tpu_torch.utils.batch import bgather
+from aloam_tpu_torch.utils.batch import (add_stream_axis, bgather,
+                                         drop_stream_axis)
 
 
 def _region_bounds(cnt: torch.Tensor, n_regions: int):
@@ -149,3 +151,12 @@ def extract_features_b(rc: RingCloud, curv: torch.Tensor,
     overflow = (drops + lf_drops).reshape(bsz, r).sum(dim=1)
     return ScanFeatures(sharp=sharp, less_sharp=less_sharp, flat=flat,
                         less_flat=less_flat, full=full, overflow=overflow)
+
+
+def extract_features(rc: RingCloud, curv: torch.Tensor,
+                     cfg: AloamConfig) -> ScanFeatures:
+    """:func:`extract_features_b` of one scan: rc leaves (R, C, ·), curv
+    (R, C). Returns ScanFeatures with (cap, ·) leaves and a scalar
+    overflow."""
+    return drop_stream_axis(extract_features_b(add_stream_axis(rc),
+                                               curv[None], cfg))

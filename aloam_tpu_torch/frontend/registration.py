@@ -5,7 +5,10 @@ Vectorized form of the per-point loops of scanRegistration.cpp:114-266:
 the sequential ``halfPassed`` azimuth state machine becomes an exclusive
 cumulative OR, ring bucketing one stable sort by ring plus a gather into a
 (R, C) grid, and the 11-point curvature stencil a sum of neighbour
-differences. Every tensor carries a leading stream axis B.
+differences. Every tensor carries a leading stream axis B, but in the
+single-stream API (``bucket_rings``, ``register_scan``): those take and
+return the JAX package's unbatched leaves, through the batched functions
+at B = 1.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch.nn.functional as F
 
 from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.types import RingCloud
-from aloam_tpu_torch.utils.batch import bgather
+from aloam_tpu_torch.utils.batch import (add_stream_axis, bgather,
+                                         drop_stream_axis)
 
 _TWO_PI = 2.0 * math.pi
 
@@ -111,6 +115,16 @@ def bucket_rings_b(xyz: torch.Tensor, intensity: torch.Tensor,
                      cnt=cnt), overflow
 
 
+def bucket_rings(xyz: torch.Tensor, intensity: torch.Tensor,
+                 ring: torch.Tensor, valid: torch.Tensor,
+                 scan_lines: int, ring_cap: int):
+    """:func:`bucket_rings_b` of one scan: xyz (N, 3), intensity, ring and
+    valid (N,). Returns (RingCloud with (R, C) leaves, overflow)."""
+    rc, overflow = bucket_rings_b(*add_stream_axis(
+        (xyz, intensity, ring, valid)), scan_lines, ring_cap)
+    return drop_stream_axis(rc), overflow[0]
+
+
 def curvature(pts: torch.Tensor, edge_margin: int = 5) -> torch.Tensor:
     """11-point curvature stencil (scanRegistration.cpp:256-266) along the
     slot axis of (..., C, 3) rings: c_i = ‖Σ_{k=-5..5, k≠0} (p_{i+k} −
@@ -145,3 +159,10 @@ def register_scan_b(xyz: torch.Tensor, mask: torch.Tensor,
     rc, overflow = bucket_rings_b(xyz, intensity, ring, valid & keep,
                                   cfg.scan_lines, cfg.ring_cap)
     return rc, curvature(rc.xyz, cfg.edge_margin), overflow
+
+
+def register_scan(xyz: torch.Tensor, mask: torch.Tensor, cfg: AloamConfig):
+    """:func:`register_scan_b` of one scan: xyz (n_raw, 3), mask (n_raw,).
+    Returns (RingCloud with (R, C) leaves, curvature (R, C), overflow)."""
+    rc, curv, overflow = register_scan_b(xyz[None], mask[None], cfg)
+    return drop_stream_axis(rc), curv[0], overflow[0]

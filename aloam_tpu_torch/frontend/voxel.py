@@ -85,6 +85,15 @@ def _voxel_core(values: torch.Tensor, mask: torch.Tensor, leaf: float,
     return means, out_mask, (n_seg - out_cap).clamp_min(0)
 
 
+def voxel_downsample_masked(values: torch.Tensor, mask: torch.Tensor,
+                            leaf: float, out_cap: int):
+    """:func:`voxel_downsample_masked_b` of one cloud: values (N, K), mask
+    (N,). Returns (out (out_cap, K), out_mask (out_cap,), n_dropped)."""
+    out, out_mask, dropped = _voxel_core(values[None], mask[None], leaf,
+                                         out_cap)
+    return out[0], out_mask[0], dropped[0]
+
+
 def voxel_downsample_masked_b(values: torch.Tensor, mask: torch.Tensor,
                               leaf: float, out_cap: int):
     """Downsample B masked clouds (the mapping input stacks,

@@ -72,29 +72,16 @@ from typing import NamedTuple
 
 import torch
 
+from aloam_tpu_torch.utils.tree import map_tensors
+from aloam_tpu_torch.utils.tree import rebuild as _rebuild
+from aloam_tpu_torch.utils.tree import tensors as _tensors
+
 captures = 0    # graphs captured, counted on the host
 replays = 0     # graph replays
 
 
-def _tensors(tree) -> list:
-    """The tensor leaves of a tree of tuples, depth first (ints and None
-    left out)."""
-    if isinstance(tree, tuple):
-        return [x for sub in tree for x in _tensors(sub)]
-    return [tree] if torch.is_tensor(tree) else []
-
-
-def _rebuild(tree, leaves):
-    """``tree`` with its tensor leaves taken in order from ``leaves``."""
-    if isinstance(tree, tuple):
-        subs = [_rebuild(sub, leaves) for sub in tree]
-        return type(tree)(*subs) if hasattr(tree, "_fields") \
-            else type(tree)(subs)
-    return next(leaves) if torch.is_tensor(tree) else tree
-
-
 def _cloned(tree):
-    return _rebuild(tree, iter([t.clone() for t in _tensors(tree)]))
+    return map_tensors(torch.clone, tree)
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -174,7 +161,7 @@ class StepGraph:
     def __call__(self, state, xyz: torch.Tensor, mask: torch.Tensor):
         """One frame: (new state, outputs)."""
         new, outs = self.run(state, xyz[None], mask[None])
-        return new, _rebuild(outs, iter([o[0] for o in _tensors(outs)]))
+        return new, map_tensors(lambda o: o[0], outs)
 
     def run(self, state, xyz_seq: torch.Tensor, mask_seq: torch.Tensor):
         """The step over every frame of (F, ...) input stacks from
@@ -270,8 +257,9 @@ class FnGraph:
     first call with a key copies its inputs into static buffers, runs
     ``fn`` once eagerly on them on a side stream (the warm-up: cached
     constants, the communicator of a collective, the allocator), captures
-    ``fn`` on them and replays the graph; a later call copies its inputs
-    in and replays. The outputs are cloned out of the graph's pool, so
+    ``fn`` on them, copies the inputs in again (the warm-up may have
+    updated them in place) and replays the graph; a later call copies its
+    inputs in and replays. The outputs are cloned out of the graph's pool, so
     the next call cannot overwrite them, and the caller's inputs are never
     written. On CPU tensors, or with ``capture=False``, ``fn`` runs
     eagerly on the caller's inputs."""
@@ -291,7 +279,8 @@ class FnGraph:
             slot = self.slots[key] = (static, _captured(
                 args[0].device, lambda: self.fn(*static),
                 lambda: self.fn(*static)))
-        else:
-            for s, a in zip(slot[0], args, strict=True):
-                s.copy_(a)
+        # every call, the first too: the warm-up may have written its
+        # inputs (a step that updates the map tables in place)
+        for s, a in zip(slot[0], args, strict=True):
+            s.copy_(a)
         return _replayed(slot[1])

@@ -7,7 +7,9 @@ the search is exhaustive and exact, like the KD-tree:
 minima in one kernel launch (ops/odom.py); ``knn`` is the dense k-NN over
 a (Q, M) distance block, or ``knn_streamed`` over M-chunks with a running
 top-k when the block would not fit (``parallel.sharding.sharded_knn``'s
-local search)."""
+local search). ``nn1`` and ``odom_window_mins`` are the single-stream
+API of the JAX package: the dense 1-NN, and ``odom_window_mins_b`` at
+B = 1."""
 
 from __future__ import annotations
 
@@ -52,6 +54,13 @@ def dist2_matrix(query: torch.Tensor, ref: torch.Tensor,
     if ref_mask is not None:
         d2 = d2.masked_fill_(~ref_mask[None, :], _INF)
     return d2
+
+
+def nn1(query: torch.Tensor, ref: torch.Tensor, ref_mask: torch.Tensor):
+    """1-NN of query (Q, 3) among the valid rows of ref (M, 3): (d2 (Q,),
+    idx (Q,) int32), ties to the lowest index."""
+    d2 = dist2_matrix(query, ref, ref_mask)
+    return d2.min(dim=-1).values, d2.argmin(dim=-1).to(torch.int32)
 
 
 def smallest_k(d2: torch.Tensor, idx: torch.Tensor, k: int):
@@ -141,3 +150,18 @@ def odom_window_mins_b(sel: torch.Tensor, ref: torch.Tensor,
     outs = odom_op.window_mins((sel - center).contiguous(), ref_p,
                                float(nearby_scan), want_same_ring, ring_seg)
     return outs if want_same_ring else outs[:4]
+
+
+def odom_window_mins(sel: torch.Tensor, ref: torch.Tensor,
+                     ref_mask: torch.Tensor, ref_ring: torch.Tensor,
+                     nearby_scan: int, want_same_ring: bool,
+                     chunk: int = 8192):
+    """:func:`odom_window_mins_b` of one stream, exhaustive (ring_seg 0):
+    sel (Q, 3), ref (M, 3), ref_mask and ref_ring (M,). ``chunk`` is the
+    JAX package's memory bound on its scan; the kernel tiles on its own
+    and the outputs do not depend on it. Returns (d2_nn, nn, d2_diff,
+    idx_diff[, d2_same, idx_same]), each (Q,)."""
+    del chunk
+    outs = odom_window_mins_b(sel[None], ref[None], ref_mask[None],
+                              ref_ring[None], nearby_scan, want_same_ring)
+    return tuple(o[0] for o in outs)

@@ -10,6 +10,15 @@ With ``cfg.distortion`` (the reference's ``DISTORTION 1``, :59,111-148)
 each point is moved by the pose slerped to its time fraction in the
 sweep, the factors carry those fractions into the solve, and the handoff
 clouds are undistorted to the sweep end (TransformToEnd).
+
+The single-stream API (``transform_to_end``, ``edge_correspondences``,
+``plane_correspondences``, ``odometry_step``) takes and returns the JAX
+package's unbatched leaves and runs the batched functions at B = 1: the
+same search (the ring-window skip of ``odometry_step_b`` changes no
+output) and the one-launch LM solve, within its stated tolerance of the
+JAX package's plain solve. ``init_state(cfg, batch, device)`` keeps the
+port's batched signature: a single-stream state is
+``drop_stream_axis(init_state(cfg, 1, device))``.
 """
 
 from __future__ import annotations
@@ -24,7 +33,8 @@ from aloam_tpu_torch import solver
 from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.neighbors import odom_window_mins_b
 from aloam_tpu_torch.types import PointCloud, ScanFeatures
-from aloam_tpu_torch.utils.batch import bgather
+from aloam_tpu_torch.utils.batch import (add_stream_axis, bgather,
+                                         drop_stream_axis)
 
 
 class OdomState(NamedTuple):
@@ -215,3 +225,37 @@ def odometry_step_b(state: OdomState, feats: ScanFeatures,
         corner_last=corner_last, surf_last=surf_last,
         initialized=torch.ones_like(state.initialized))
     return new_state, metrics
+
+
+def transform_to_end(pc: PointCloud, q, t, cfg: AloamConfig) -> PointCloud:
+    """:func:`transform_to_end_b` of one cloud: leaves (N, ·), q (4,), t
+    (3,)."""
+    return drop_stream_axis(transform_to_end_b(add_stream_axis(pc), q[None],
+                                               t[None], cfg))
+
+
+def edge_correspondences(sharp: PointCloud, last: PointCloud, q, t,
+                         cfg: AloamConfig) -> solver.EdgeFactors:
+    """:func:`edge_correspondences_b` of one stream, searched exhaustively
+    (ring_seg 0, as the JAX package's single-stream search): clouds (N, ·),
+    q (4,), t (3,); factors with (N, ·) leaves."""
+    return drop_stream_axis(edge_correspondences_b(
+        *add_stream_axis((sharp, last, q, t)), cfg))
+
+
+def plane_correspondences(flat: PointCloud, last: PointCloud, q, t,
+                          cfg: AloamConfig) -> solver.PlaneFactors:
+    """:func:`plane_correspondences_b` of one stream, as
+    :func:`edge_correspondences`."""
+    return drop_stream_axis(plane_correspondences_b(
+        *add_stream_axis((flat, last, q, t)), cfg))
+
+
+def odometry_step(state: OdomState, feats: ScanFeatures,
+                  cfg: AloamConfig):
+    """:func:`odometry_step_b` of one stream: state and feature leaves
+    without the stream axis. Returns (new_state, OdomMetrics of
+    scalars)."""
+    new_state, metrics = odometry_step_b(add_stream_axis(state),
+                                         add_stream_axis(feats), cfg)
+    return drop_stream_axis(new_state), drop_stream_axis(metrics)

@@ -27,6 +27,11 @@ H-row table, and the functions that take a ``shard`` hash with the whole
 table's size, touch only the rows this rank owns, and sum their counts
 over the group. Every other input (queries, points, poses) is the same on
 every rank of the group.
+
+``empty(batch, table_size, bucket_cap, device)`` keeps the port's batched
+signature (the JAX package's ``empty`` makes one stream's table); a
+single-stream table, as :func:`insert` and :func:`extract` take it, is
+``drop_stream_axis(empty(1, ...))``.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch.distributed as dist
 from aloam_tpu_torch.ops import insert as insert_op
 from aloam_tpu_torch.ops import knn as knn_op
 from aloam_tpu_torch.ops.linalg3 import true_div
-from aloam_tpu_torch.utils.batch import bgather
+from aloam_tpu_torch.utils.batch import bgather, drop_stream_axis
 
 _P1, _P2, _P3 = 73856093, 19349663, 83492791  # spatial-hash primes
 _EMPTY = 32767                                 # cell-coordinate sentinel
@@ -564,6 +569,27 @@ def insert_vds_b(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
     return _insert_sorted(grid, key_s, px_s, py_s, pz_s, pi_s, vox_s,
                           is_tail.sum(dim=1), leaf, cell_size, center,
                           window, point_cap, touched_cap, shard)
+
+
+def insert(grid: GridMap, pts: torch.Tensor, inten: torch.Tensor,
+           mask: torch.Tensor, leaf: float, cell_size: float,
+           center: torch.Tensor, window: torch.Tensor,
+           point_cap: int | None = None, touched_cap: int | None = None):
+    """:func:`insert_b` of one stream: grid leaves (H, ·), updated in place
+    (a view of the stream axis of 1), pts (N, 3), inten and mask (N,),
+    center (3,). The JAX package's default caps: point_cap covers a whole
+    bucket (max(bucket_cap, 32)), touched_cap min(N, 8192); the kernel
+    takes point_cap up to 128 (``ops/insert.merge_rows``), as many as a
+    bucket's slots. Returns (grid, merged, appended, evicted, dropped)."""
+    n = pts.shape[0]
+    if point_cap is None:
+        point_cap = max(grid.bucket_cap, 32)
+    if touched_cap is None:
+        touched_cap = min(n, 8192)
+    out = insert_b(GridMap(grid.pts[None], grid.aux[None]), pts[None],
+                   inten[None], mask[None], leaf, cell_size, center[None],
+                   window, point_cap=point_cap, touched_cap=touched_cap)
+    return drop_stream_axis(out)
 
 
 def extract(grid: GridMap):

@@ -180,7 +180,7 @@ def merge_rows(pts_table: torch.Tensor, aux_table: torch.Tensor,
     its rows and name distinct buckets (as ``gridmap._insert_sorted``
     builds them). Returns the per-row (merged, appended, evicted) counts
     (B, C) int32. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (Bk a multiple of 4 up to 128, P <= 32)."""
+    the kernel (Bk a multiple of 4 up to 128, P <= 128)."""
     args = (pts_table, aux_table, slot_h, cnt, ppx, ppy, ppz, ppi, pvox,
             center, window)
     if all(t.device.type == "cpu" for t in args):
@@ -199,11 +199,11 @@ def merge_rows(pts_table: torch.Tensor, aux_table: torch.Tensor,
         and all(tuple(t.shape) == (bsz, cap_c, cap_p)
                 for t in (ppx, ppy, ppz, ppi, pvox))
         and tuple(center.shape) == (bsz, 3) and tuple(window.shape) == (3,)
-        and 0 < bk <= 128 and bk % 4 == 0 and 0 < cap_p <= 32
+        and 0 < bk <= 128 and bk % 4 == 0 and 0 < cap_p <= 128
         and pts_table.data_ptr() % 16 == 0 and aux_table.data_ptr() % 16 == 0)
     if not shapes_ok:
         raise ValueError(f"merge_rows: shapes {[tuple(a.shape) for a in args]}"
-                         f" (Bk a multiple of 4 up to 128, P <= 32, tables "
+                         f" (Bk a multiple of 4 up to 128, P <= 128, tables "
                          f"16-byte aligned)")
     stats = torch.empty((3, bsz, cap_c), dtype=i32, device=ppx.device)
     _build.launch("aloam_merge_rows", ppx.device,

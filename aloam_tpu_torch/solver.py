@@ -53,11 +53,14 @@ class PlaneFactors(NamedTuple):
     s: torch.Tensor | None = None
 
 
-def _skew(v: torch.Tensor) -> torch.Tensor:
-    x, y, z = v.unbind(-1)
-    zero = torch.zeros_like(x)
-    return torch.stack([zero, -z, y, z, zero, -x, -y, x, zero],
-                       dim=-1).reshape(v.shape[:-1] + (3, 3))
+class PointFactors(NamedTuple):
+    """Point-to-point (LidarDistanceFactor, lidarFactor.hpp:141-172):
+    residual (3,) = q·p + t − target. The reference uses it only from
+    commented-out code (laserMapping.cpp:623-639); ``lm_solve`` takes it.
+    Leaves (B, N, 3) / (B, N)."""
+    p: torch.Tensor
+    target: torch.Tensor
+    mask: torch.Tensor
 
 
 def _interp_pose(q, t, s):
@@ -91,7 +94,7 @@ def edge_residuals(f: EdgeFactors, q, t):
         dv, dim=-1, keepdim=True).clamp_min(1e-12)
     r = torch.linalg.cross(u - f.a, u - f.b, dim=-1) * inv_norm
     # dr/du = -[d]x / ||d|| ; dr/dtheta = (rp d^T - (d.rp) I) / ||d||
-    j_u = -_skew(dv) * inv_norm[..., None]
+    j_u = -geo.skew(dv) * inv_norm[..., None]
     eye = torch.eye(3, dtype=u.dtype, device=u.device)
     j_theta = (rp[..., :, None] * dv[..., None, :]
                - (dv * rp).sum(-1)[..., None, None] * eye) \
@@ -114,7 +117,17 @@ def plane_residuals(f: PlaneFactors, q, t):
     return r, torch.cat([j_theta, j_n], dim=-1)[..., None, :]
 
 
-_RESIDUAL_FNS = {EdgeFactors: edge_residuals, PlaneFactors: plane_residuals}
+def point_residuals(f: PointFactors, q, t):
+    """Residual (B, N, 3) and Jacobian (B, N, 3, 6): dr/dθ = −[R p]x,
+    dr/dt = I."""
+    u = geo.qrot(q[:, None], f.p) + t[:, None]
+    j_theta = -geo.skew(u - t[:, None])
+    eye = torch.eye(3, dtype=u.dtype, device=u.device).expand_as(j_theta)
+    return u - f.target, torch.cat([j_theta, eye], dim=-1)
+
+
+_RESIDUAL_FNS = {EdgeFactors: edge_residuals, PlaneFactors: plane_residuals,
+                 PointFactors: point_residuals}
 
 
 def huber_weight(s: torch.Tensor, delta: float) -> torch.Tensor:

@@ -44,8 +44,9 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    map merge (``merge_tiles``, ``insert.merge_rows``) with both tables
    bit-equal to its plain version's as a whole (no row used, every point
    merging, evictions in both priority classes, priority ties, cnt past
-   the cap; Bk 32 and 48). A kernel that updates the tables in place gets
-   a fresh clone of them for every call, timed calls included;
+   the cap; (Bk, P) (32, 16), (48, 16), (48, 48), (128, 128)). A kernel
+   that updates the tables in place gets a fresh clone of them for every
+   call, timed calls included;
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
    kernels (its four launch counters must rise, and every odometry search
    must declare ``ring_seg`` > 0) and with the plain versions; per-frame
@@ -159,13 +160,28 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    in turn three times; a graphed frame's device busy time and idle
    share under torch.profiler, the replay alone back to back, the host
    ms to issue a frame (graphed and eager) and the peak memory. Its run
-   time is printed.
+   time is printed;
+13. bench: first the bench's preset rung in this process, ``step_b`` at
+   ``PRESETS["HDL-64"]``'s caps over phase 3's streams, its launches
+   counted from 0 (all six kernels must launch), its kernels held against
+   their plain versions at its frame-1 inputs as in phase 4, and its ATE
+   as in phase 6; then ``python -m aloam_tpu_torch.pregen_streams`` and
+   ``python -m aloam_tpu_torch.bench`` as child processes, each with a
+   time limit, at BENCH_BATCH=16 BENCH_BATCH_FRAMES=8 BENCH_FRAMES=8
+   BENCH_STAGES=1 (the bench checks every kernel against its plain
+   version on the card first, and step_b's again at each batched run's
+   frame-1 inputs); each of its runs must launch every kernel
+   of its path (the counts it prints); its last line must carry exactly
+   bench.py's keys but ``step_gflops`` and ``mfu_pct`` (``BENCH_KEYS``),
+   no ``batch_fallback``, ``value`` > 0, every ATE under 0.5 m and
+   phase 1's device name; the line is printed.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on the main path, worst error, kernel ms back to back, device
 ms, plain and bound ms at its largest input; ``knn_select_rows``'s
 launches are the association call's of phase 7, ``lm_fused_s``'s the
-distorted ``step_b``'s of phase 10); the last line is
+distorted ``step_b``'s of phase 10; ``launches_by_path`` those of phase
+13's preset rung and of the bench's runs); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a CUDA card.
 """
@@ -230,6 +246,18 @@ DIST_CACHE = os.path.join(
 DIST_SINGLE_CACHE = os.path.join(
     CACHE_DIR, f"chip_smoke_dist_single_hdl64_a{N_AZIMUTH}_f{N_FRAMES}_"
     f"s{DIST_SINGLE_SEED}.npz")
+# phase 13: the bench's settings, the keys of its line (bench.py's, as in
+# BENCH_r05.json, but step_gflops and mfu_pct; stage_ms with BENCH_STAGES)
+# and the time limits of its two child processes
+BENCH_ENV = {"BENCH_BATCH": "16", "BENCH_BATCH_FRAMES": "8",
+             "BENCH_FRAMES": "8", "BENCH_STAGES": "1"}
+BENCH_KEYS = {"metric", "unit", "device_kind", "ms_per_scan_single",
+              "ate_rmse_m", "frames", "value", "batch", "blocks",
+              "spread_sps", "ate_batched_max_m", "ate_batched_med_m",
+              "batch_frames", "batch_ladder", "bench_caps", "value_preset",
+              "ate_preset_max_m", "preset_caps", "vs_baseline", "vs_target",
+              "stage_ms"}
+PREGEN_TIMEOUT_S, BENCH_TIMEOUT_S = 240, 420
 # kernel name -> (module, kernel function, plain function, CUDA source,
 # the Pallas kernel it replaces at its pallas_call)
 KERNELS = {
@@ -336,13 +364,12 @@ def say(msg: str) -> None:
 
 
 def bench_cfg():
-    """bench.batched_bench_cfg() (bench.py imports JAX, so its fields are
-    copied here)."""
-    from aloam_tpu_torch.config import PRESETS
-    return PRESETS["HDL-64"].replace(ring_cap=N_AZIMUTH + 56,
-                                     n_raw=64 * N_AZIMUTH,
-                                     less_flat_cap=36864, assoc_cspan=128,
-                                     map_query_chunk=2048)
+    """The bench's batched config,
+    ``aloam_tpu_torch.bench.batched_bench_cfg()`` (ring_cap 1856, n_raw
+    115200, less_flat_cap 36864, assoc_cspan 128, map_query_chunk 2048 at
+    BENCH_AZIMUTH 1800)."""
+    from aloam_tpu_torch.bench import batched_bench_cfg
+    return batched_bench_cfg()
 
 
 def cached(path, build):
@@ -476,74 +503,31 @@ def run_frames(step, pipeline, cfg, frames, device, batch=B):
         st, out = step(st, xyz, mask, cfg)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        outs.append({k: (v.cpu().numpy() if torch.is_tensor(v) else
-                         {n: m.cpu().numpy() for n, m in v.items()})
-                     for k, v in out._asdict().items() if v is not None})
+        outs.append(to_host(out))
     return outs, ms, st
+
+
+def to_host(out) -> dict:
+    """A step's output on the host, as a dict of numpy arrays."""
+    import torch
+    return {k: (v.cpu().numpy() if torch.is_tensor(v) else
+                {n: m.cpu().numpy() for n, m in v.items()})
+            for k, v in out._asdict().items() if v is not None}
 
 
 def absdiff(got, want):
     """|got - want| with equal entries (inf included) and NaN in both at
-    0."""
-    import torch
-    same = (got == want) | (got.isnan() & want.isnan())
-    return torch.where(same, 0.0, (got.double() - want.double()).abs())
+    0 (``aloam_tpu_torch.ops.tolerance.absdiff``)."""
+    from aloam_tpu_torch.ops import tolerance
+    return tolerance.absdiff(got, want)
 
 
-def compare(name, got, want, kind=None):
+def compare(name, got, want, kind=None, inputs=None):
     """max_abs_err of a kernel against its plain version, failing past the
-    kernel's tolerance:
-      select_rings           labels exact;
-      segmented_prefix_sums  |k - p| <= 1e-5 + 1e-6 |p| (f32 summation
-                             order; sums reach ~1e3 at HDL-64 coordinates,
-                             where one f32 ulp is ~6e-5), count channel
-                             exact;
-      window_mins            exact: both compute d2 with the same
-                             rounded operations in the same order;
-      lm_fused               q atol 2e-5, t atol 2e-4, cost0 rtol 2e-4,
-                             cost rtol 2e-3, counts exact (reduction order
-                             and unpivoted elimination vs LU); a NaN in
-                             both agrees;
-      assoc_cell             ok flags differ on at most 1 query in 10^4 and
-                             columns of queries live in both within 1e-4:
-                             d2, select and fit are the same rounded
-                             operations in the same order (bit-equal where
-                             measured), a margin for a near-tie;
-      merge_tiles            both tables bit-equal as a whole and the
-                             counts exact (no arithmetic but the midpoint
-                             and the priority formula, identical);
-      knn_select(_rows)      d2 and neighbours exact (the same rounded
-                             operations in the same order, lowest-index
-                             ties)."""
-    import torch
-    if name == "select_rings":
-        err = absdiff(got, want).max().item()
-        ok = torch.equal(got, want)
-    elif name == "segmented_prefix_sums":
-        d = absdiff(got, want)
-        err = d.max().item()
-        ok = bool((d <= 1e-5 + 1e-6 * want.abs()).all()) \
-            and torch.equal(got[-1], want[-1])
-    elif name in ("window_mins", "merge_tiles", "knn_select",
-                  "knn_select_rows"):
-        err = max(absdiff(g, w).max().item() for g, w in zip(got, want))
-        ok = all(torch.equal(g, w) for g, w in zip(got, want))
-    elif name == "assoc_cell":
-        okc = 6 if kind == "corner" else 4
-        live = (got[:, okc] > 0) & (want[:, okc] > 0)
-        flips = (got[:, okc] != want[:, okc]).sum().item()
-        err = absdiff(got[live], want[live]).max().item() if live.any() \
-            else 0.0
-        ok = flips <= max(1, want.shape[0] // 10000) and err <= 1e-4 \
-            and live.sum().item() > 0
-    else:
-        d = absdiff(got, want)
-        rel = torch.where(d[:, 7:9] == 0, 0.0,
-                          d[:, 7:9] / want[:, 7:9].abs().clamp_min(1e-12))
-        err = d[:, :7].max().item()
-        ok = (d[:, 0:4].max() <= 2e-5 and d[:, 4:7].max() <= 2e-4
-              and rel[:, 0].max() <= 2e-4 and rel[:, 1].max() <= 2e-3
-              and torch.equal(got[:, 9:], want[:, 9:]))
+    kernel's tolerance (``aloam_tpu_torch/ops/tolerance.py`` states each
+    one; the seg scan's reads its ``inputs``)."""
+    from aloam_tpu_torch.ops import tolerance
+    ok, err = tolerance.agree(name, got, want, kind, inputs)
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version "
              f"(max abs err {err:.6g})")
@@ -639,26 +623,13 @@ def bound_of(nbytes: int, flops: int):
 
 def record_inputs(mods, names, drive):
     """Run ``drive()`` with each named kernel's wrapper recording its
-    inputs, one record per distinct input signature. Returns {(name,
+    inputs, one record per distinct input signature
+    (``aloam_tpu_torch.bench.record_inputs``). Returns {(name,
     signature): (args, kw)}."""
     import torch
-    recorded = {}
-
-    def recorder(name, fn):
-        def call(*args, **kw):
-            key = (name, tuple(tuple(a.shape) if torch.is_tensor(a) else a
-                               for a in args if not isinstance(a, float)))
-            if key not in recorded:
-                recorded[key] = (tuple(a.clone() if torch.is_tensor(a) else a
-                                       for a in args), dict(kw))
-            return fn(*args, **kw)
-        return call
-
-    swaps = [(mods[n], KERNELS[n][1], recorder(n, getattr(mods[n],
-                                                          KERNELS[n][1])))
-             for n in names]
-    with Patched(swaps):
-        drive()
+    from aloam_tpu_torch import bench
+    recorded = bench.record_inputs(
+        {n: (mods[n], KERNELS[n][1]) for n in names}, drive)
     torch.cuda.synchronize()
     missing = set(names) - {name for name, _ in recorded}
     if missing:
@@ -703,7 +674,8 @@ def check_recorded(mods, recorded, results, card):
         torch.cuda.synchronize()
         extra = [a for a in args if isinstance(a, (str, bool, int))]
         err = compare(name, got, want,
-                      *[a for a in extra if isinstance(a, str)])
+                      *[a for a in extra if isinstance(a, str)],
+                      inputs=args)
         nbytes, flops = kernel_work(name, args, kw, got)
         bound_ms, bound_by = bound_of(nbytes, flops)
         ms = cuda_ms(fresh_calls(name, kern, args, kw, 21), 20)
@@ -850,7 +822,7 @@ def check_adversarial(mods, device, results, card):
         h = torch.from_numpy(heads).to(device)
         err = compare("segmented_prefix_sums",
                       vox.segmented_prefix_sums(v, h),
-                      vox.segmented_prefix_sums_plain(v, h))
+                      vox.segmented_prefix_sums_plain(v, h), inputs=(v, h))
         say(f"[adversarial] segmented_prefix_sums {label}: vals "
             f"{tuple(v.shape)} {int(heads.sum())} heads: max_abs_err "
             f"{err:.3g} ({card})")
@@ -1142,26 +1114,29 @@ def check_adversarial_select(mods, device, card):
 def check_adversarial_merge(mods, device, card):
     """Phase 4, sixth part: the in-place merge against its plain version,
     each on its own clone of the tables, both tables bit-equal as a whole
-    (the rows no used row names included) and the counts equal, at Bk 32
-    and 48 over B = 2 tables of 4096 buckets with 1024 rows of 16 points
-    (``_torch_scenes.merge_case``): random tables and points, no row used,
+    (the rows no used row names included) and the counts equal, at (Bk,
+    P) (32, 16), (48, 16), (48, 48) and (128, 128) over B = 2 tables of
+    4096 buckets with 1024 rows (``_torch_scenes.merge_case``; P past 32
+    takes the kernel's four-word point list, as the single-stream
+    ``gridmap.insert``'s default point_cap max(Bk, 32) gives it): random
+    tables and points, no row used,
     every point merging, more appends than empty slots in and out of the
     window (evictions in both priority classes), rows of one priority
     (ties), cnt past the point cap."""
     import torch
     mod = mods["merge_tiles"]
     rng = np.random.default_rng(8)
-    for bk in (32, 48):
+    for bk, cap_p in ((32, 16), (48, 16), (48, 48), (128, 128)):
         for case in MERGE_CASES:
             arrays = merge_case(rng, case, bsz=2, h=4096, cap_c=1024,
-                                cap_p=16, bk=bk)
+                                cap_p=cap_p, bk=bk)
             args = tuple(torch.from_numpy(a).to(device) for a in arrays)
             args += (2.0, 0.4)
             got = run_kernel("merge_tiles", mod.merge_rows, args, {})
             want = run_kernel("merge_tiles", mod.merge_rows_plain, args, {})
             compare("merge_tiles", got, want)
             changed = int((got[0] != args[0]).any(dim=-1).sum())
-            say(f"[adversarial] merge_tiles {case} Bk {bk}: "
+            say(f"[adversarial] merge_tiles {case} Bk {bk} P {cap_p}: "
                 f"{int((args[3] > 0).sum())} used rows, {changed} table rows "
                 f"changed, merged / appended / evicted "
                 f"{[int(t.sum()) for t in got[2:]]}: tables bit-equal to "
@@ -1170,6 +1145,51 @@ def check_adversarial_merge(mods, device, card):
                 fail("merge_tiles: a row with cnt 0 changed the table")
             if case == "evictions" and not int(got[4].sum()):
                 fail("merge_tiles: the evictions case evicted nothing")
+    check_insert_twin(mods, device, card)
+
+
+def check_insert_twin(mods, device, card):
+    """Phase 4, sixth part, last: the single-stream ``gridmap.insert`` at
+    JAX's default caps on a table of Bk 48 (the preset's surf buckets),
+    so point_cap max(Bk, 32) = 48: two inserts of ~110 points a cell (the
+    second merging and evicting) on the card, tables and counts bit-equal
+    to the same calls on the CPU (the plain version, which
+    tests/test_torch_api.py holds to JAX's insert)."""
+    import torch
+    from aloam_tpu_torch.ops import gridmap
+    from aloam_tpu_torch.utils.batch import drop_stream_axis
+    rng = np.random.default_rng(9)
+    table, bk, leaf, cell = 256, 48, 0.1, 2.0
+    grids = {d: drop_stream_axis(gridmap.empty(1, table, bk, d))
+             for d in ("cpu", device)}
+    base = rng.uniform(-3, 3, size=(3000, 3)).astype(np.float32)
+    before = mods["merge_tiles"].launches
+    for step in range(2):
+        pts = base + rng.normal(scale=0.02, size=base.shape)
+        args = [torch.from_numpy(a) for a in (
+            pts.astype(np.float32),
+            rng.uniform(0, 16, size=3000).astype(np.float32),
+            rng.uniform(size=3000) > 0.05)]
+        centre, window = (torch.tensor(v, dtype=torch.int32)
+                          for v in ((1, 0, 0), (3, 3, 2)))
+        outs = {d: gridmap.insert(grids[d], *(a.to(d) for a in args), leaf,
+                                  cell, centre.to(d), window.to(d))
+                for d in grids}
+        for d, out in outs.items():
+            grids[d] = out[0]
+        got, want = outs[device], outs["cpu"]
+        if not (torch.equal(got[0].pts.cpu(), want[0].pts)
+                and torch.equal(got[0].aux.cpu(), want[0].aux)
+                and all(int(g) == int(w) for g, w in zip(got[1:], want[1:]))):
+            fail(f"gridmap.insert at Bk {bk}: the card's insert {step} "
+                 f"differs from the CPU's")
+        say(f"[adversarial] gridmap.insert Bk {bk} point_cap 48, insert "
+            f"{step}: merged / appended / evicted / dropped "
+            f"{[int(t) for t in got[1:]]}: tables bit-equal to the CPU's "
+            f"({card})")
+    if mods["merge_tiles"].launches - before != 2 or int(got[3]) < 1:
+        fail("gridmap.insert at Bk 48: the kernel did not run twice, or "
+             "the second insert evicted nothing")
 
 
 def check_adversarial_knn(mods, device, results, card):
@@ -2776,6 +2796,110 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
     say(f"[graph] phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def run_module(module: str, args: list, env: dict, timeout: float) -> str:
+    """``python -m module args`` from the repository root with ``env``: its
+    standard output. A non-zero exit, or a run past ``timeout`` seconds
+    (the child is killed then), fails the run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        p = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                           env=env, capture_output=True, text=True,
+                           timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        out = e.stdout or b""          # bytes, even with text=True
+        out = out.decode(errors="replace") if isinstance(out, bytes) else out
+        fail(f"{module} still running after {timeout:g} s\n{out[-2000:]}")
+    if p.returncode:
+        fail(f"{module} exited {p.returncode}\n{p.stdout[-2000:]}\n"
+             f"{p.stderr[-4000:]}")
+    return p.stdout
+
+
+def check_preset_rung(pipeline, mods, cfg, frames, gt, device, results,
+                      card):
+    """Phase 13, first part: the bench's preset rung in this process,
+    ``step_b`` at ``PRESETS["HDL-64"]``'s caps (the bench's
+    map_query_chunk) over phase 3's B = 16 streams, padded to the preset's
+    n_raw. Its launches are counted from 0 over the frames (each of
+    step_b's six kernels must launch), its kernels held against their
+    plain versions at the inputs its frame 1 gives them, as phase 4 holds
+    them at the bench config, and its ATE as phase 6's. Returns the
+    launches."""
+    import torch
+    from aloam_tpu_torch.config import PRESETS
+    pcfg = PRESETS["HDL-64"].replace(map_query_chunk=cfg.map_query_chunk)
+    pad = pcfg.n_raw - cfg.n_raw
+    pframes = [(torch.cat([x, x.new_zeros(B, pad, 3)], 1),
+                torch.cat([m, m.new_zeros(B, pad)], 1)) for x, m in frames]
+    t0 = time.perf_counter()
+    reset_counts(mods)
+    st = pipeline.init_state(pcfg, B, device)
+    st, out = pipeline.step_b(st, *pframes[0], pcfg)
+    outs, box = [to_host(out)], {}
+
+    def frame1():
+        box["st"], box["out"] = pipeline.step_b(st, *pframes[1], pcfg)
+
+    recorded = record_inputs(mods, STEP_KERNELS, frame1)
+    st, outs = box["st"], outs + [to_host(box["out"])]
+    for xyz, mask in pframes[2:]:
+        st, out = pipeline.step_b(st, xyz, mask, pcfg)
+        outs.append(to_host(out))
+    launches = {n: launch_count(mods, n) for n in STEP_KERNELS}
+    say(f"[preset] step_b at PRESETS['HDL-64'] (ring_cap {pcfg.ring_cap}, "
+        f"n_raw {pcfg.n_raw}, less_flat_cap {pcfg.less_flat_cap}, "
+        f"assoc_cspan {pcfg.assoc_cspan}), B={B}: kernel launches over "
+        f"{len(pframes)} frames: {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the preset rung was never launched: {launches}")
+    del st
+    ate_check("preset", outs, gt, B)
+    check_recorded(mods, recorded, results, card)
+    return launches
+
+
+def run_bench(kind: str, card: str) -> dict:
+    """Phase 13, second part: the port's bench, ``python -m
+    aloam_tpu_torch.bench``, at ``BENCH_ENV`` after its scenes are made;
+    its line held to ``BENCH_KEYS`` exactly, a positive rate, ATEs under
+    0.5 m (a broken path, as phase 6) and phase 1's device name; each of
+    its three runs (one stream, B = 16, the preset rung) must launch
+    every kernel of its path. Returns the launches summed over them."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, **BENCH_ENV)
+    run_module("aloam_tpu_torch.pregen_streams", [], env, PREGEN_TIMEOUT_S)
+    say(f"[bench] scenes ready ({time.perf_counter() - t0:.1f} s)")
+    lines = run_module("aloam_tpu_torch.bench", [], env,
+                       BENCH_TIMEOUT_S).strip().splitlines()
+    launches, runs = dict.fromkeys(KERNELS, 0), 0
+    for line in lines[:-1]:
+        say(line)
+        if " kernel launches {" not in line:
+            continue
+        counts = json.loads(line.split(" kernel launches ", 1)[1])
+        need = SINGLE_KERNELS if "one stream" in line else STEP_KERNELS
+        if min(counts[n] for n in need) < 1:
+            fail(f"bench: a kernel of its path was never launched: {line}")
+        runs += 1
+        for n, c in counts.items():
+            launches[n] += c
+    if runs != 3:
+        fail(f"bench: {runs} runs reported their launches, not 3")
+    r = json.loads(lines[-1])
+    if set(r) != BENCH_KEYS:
+        fail(f"bench: keys {sorted(set(r) ^ BENCH_KEYS)} differ from "
+             f"bench.py's")
+    ates = {k: r[k] for k in ("ate_rmse_m", "ate_batched_max_m",
+                              "ate_batched_med_m", "ate_preset_max_m")}
+    if not r["value"] > 0 or max(ates.values()) >= 0.5:
+        fail(f"bench: value {r['value']}, ATE {ates}")
+    if r["device_kind"] != kind:
+        fail(f"bench: device_kind {r['device_kind']!r}, phase 1 {kind!r}")
+    say(f"[bench] {json.dumps(r)}")
+    say(f"[bench] phase 13 took {time.perf_counter() - t0:.1f} s ({card})")
+    return launches
+
 
 def main() -> None:
     import torch
@@ -2871,6 +2995,11 @@ def main() -> None:
     run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
               outs_1, tables_1, dist, device, card)
 
+    # ---- 13. the preset rung, the port's bench ----------------------------
+    by_path = {"preset_rung": check_preset_rung(
+        pipeline, mods, cfg, frames, gt, device, results, card),
+        "bench": run_bench(kind, card)}
+
     kernels = [dict(name=name, route="cuda", source=spec[3],
                     replaces=spec[4], launches=launches[name],
                     max_abs_err=results[name]["max_abs_err"],
@@ -2880,7 +3009,9 @@ def main() -> None:
                     bound_ms=results[name]["bound_ms"],
                     bound_by=results[name]["bound_by"],
                     # no one PyTorch call computes any of these functions
-                    library_ms=None)
+                    library_ms=None,
+                    launches_by_path={p: n.get(name, 0)
+                                      for p, n in by_path.items()})
                for name, spec in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
