@@ -174,14 +174,34 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    of its path (the counts it prints); its last line must carry exactly
    bench.py's keys but ``step_gflops`` and ``mfu_pct`` (``BENCH_KEYS``),
    no ``batch_fallback``, ``value`` > 0, every ATE under 0.5 m and
-   phase 1's device name; the line is printed.
+   phase 1's device name; the line is printed;
+14. drift: the long-horizon run (``aloam_tpu_torch.drift``): (a) the
+   500-frame drift scene of tests/test_long_drift.py (VLP-16, 256 azimuth
+   steps, 0.8 m a frame, ``drift.DRIFT_CFG``), rendered over a process
+   pool or read from ``.bench_cache/``; (b) the kernels of ``step`` and
+   of ``step_b`` at B = 1 against their plain versions at the inputs the
+   scene's frame 1 gives them, as phase 4; (c) ``make_step_fn`` and
+   ``batched_step_jit`` over frames 0-19 bit-equal to the eager ``step``
+   and ``step_b``; (d) ``make_step_fn`` and (e) ``batched_step_jit`` at
+   B = 1 over all 500 frames, each path's launch counters set to 0 just
+   before and read just after (each of its six must rise), held to
+   tests/test_long_drift.py's gates (``drift.gates``: map_solved >= 495,
+   drift < 3 %, ATE < 10 m, every pose finite, the first 200 frames'
+   drift within 1.25 x the f64 oracle's, or 1.25 x JAX's own ratio where
+   that is higher); it prints per path the drift, ATE, odometry drift and
+   ratio to the oracle, JAX's figures from ``tests/_torch_drift_ref.npz``
+   (made on the CPU by tests/_torch_drift_witness.py) and per 100 frames
+   the tables' occupancy, the summed map_overflow and map_evicted, the
+   largest gap to JAX's mapped position and the graphed ms a scan, the
+   peak device memory and the phase's run time.
 
 The second-to-last line is a JSON object with one entry per kernel (its
 launches on the main path, worst error, kernel ms back to back, device
 ms, plain and bound ms at its largest input; ``knn_select_rows``'s
 launches are the association call's of phase 7, ``lm_fused_s``'s the
 distorted ``step_b``'s of phase 10; ``launches_by_path`` those of phase
-13's preset rung and of the bench's runs); the last line is
+13's preset rung and of the bench's runs, and of phase 14's two paths);
+the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a CUDA card.
 """
@@ -258,6 +278,8 @@ BENCH_KEYS = {"metric", "unit", "device_kind", "ms_per_scan_single",
               "ate_preset_max_m", "preset_caps", "vs_baseline", "vs_target",
               "stage_ms"}
 PREGEN_TIMEOUT_S, BENCH_TIMEOUT_S = 240, 420
+# phase 14: the frames over which graphed and eager must be bit-equal
+DRIFT_EQUAL_FRAMES = 20
 # kernel name -> (module, kernel function, plain function, CUDA source,
 # the Pallas kernel it replaces at its pallas_call)
 KERNELS = {
@@ -2901,6 +2923,141 @@ def run_bench(kind: str, card: str) -> dict:
     return launches
 
 
+def drift_kernels(pipeline, mods, cfg, frames, device, results, card):
+    """Phase 14 (b): each path's kernels against their plain versions at
+    the inputs frame 1 of the drift scene gives them (16 rings, ring_cap
+    512: launch plans no other phase reaches), as phase 4 does."""
+    for tag, step, names, batched in (
+            ("step", pipeline.step, SINGLE_KERNELS, False),
+            ("step_b", pipeline.step_b, STEP_KERNELS, True)):
+        data = [(x[None], m[None]) if batched else (x, m)
+                for x, m in frames[:2]]
+        st = pipeline.init_state(cfg, 1, device)
+        st, _ = step(st, *data[0], cfg)
+        recorded = record_inputs(mods, names,
+                                 lambda: step(st, *data[1], cfg))
+        del st
+        say(f"[drift] (b) {tag}'s kernels at the drift scene's frame-1 "
+            f"inputs:")
+        check_recorded(mods, recorded, results, card)
+
+
+def drift_graph_equal(pipeline, cfg, frames, device) -> None:
+    """Phase 14 (c): the graphed step and step_b (B = 1) over ``frames``
+    (the first DRIFT_EQUAL_FRAMES), bit-equal to the eager ones."""
+    from aloam_tpu_torch import parallel
+    batched = [(x[None], m[None]) for x, m in frames]
+    for tag, eager, fn, data in (
+            ("step", pipeline.step, pipeline.make_step_fn(cfg), frames),
+            ("step_b", pipeline.step_b, parallel.batched_step_jit(cfg),
+             batched)):
+        want, _, st = run_frames(eager, pipeline, cfg, data, device, 1)
+        outs, st_g = stepped(fn, pipeline, cfg, data, device, 1)
+        same_outputs(f"drift {tag}", outs, want)
+        same_tables(f"[drift] {tag}", st_g.map, (st.map.corner, st.map.surf))
+        del st, st_g
+    say(f"[drift] (c) make_step_fn and batched_step_jit (B = 1) over frames "
+        f"0-{DRIFT_EQUAL_FRAMES - 1}: every output and the final tables "
+        f"bit-equal to the eager step and step_b")
+
+
+def drift_path(mods, tag, names, scans, traj, ref, device, card):
+    """Phase 14 (d) / (e): one path graphed over the whole scene, its
+    launch counters set to 0 just before and read just after (each must
+    rise), its figures printed and held to ``drift.gates``. Returns the
+    launches."""
+    import torch
+    from aloam_tpu_torch import drift
+    from aloam_tpu_torch import graph as gm
+    batched = tag == "step_b"
+    seen = []
+    reset_counts(mods)
+    gm.captures = gm.replays = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with graph_spy(mods, seen):
+        res = drift.run(drift.DRIFT_CFG, scans, device, batched=batched)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = {n: launch_count(mods, n) for n in KERNELS}
+    if min(launches[n] for n in names) < 1:
+        fail(f"[drift] a kernel of the {tag} path was never launched: "
+             f"{launches}")
+    if (gm.captures, gm.replays, len(seen)) != (1, len(scans), 1):
+        fail(f"[drift] {tag}: {gm.captures} captures, {gm.replays} replays")
+    on_card = {n: seen[0]["launches"][n] * gm.replays for n in names}
+    s = drift.summary(res, traj, ref, batched)
+    say(f"[drift] {tag}: {s['n_frames']} frames graphed in {secs:.1f} s (the "
+        f"scans' upload and the capture included; one capture, "
+        f"{gm.replays} replays); counted launches (warm-up and capture) "
+        f"{ {n: launches[n] for n in names} }, on the card through the "
+        f"replays {on_card}; peak device memory {peak / 2 ** 30:.3f} GiB "
+        f"(the {len(scans)} padded scans on the card included) ({card})")
+    say(f"[drift] {tag}: over {s['n_frames']} frames drift "
+        f"{s['run_drift_pct']} % ({s['run_segments']} segments), ATE "
+        f"{s['run_ate_m']} m, odometry drift {s['odom_drift_pct']} %, "
+        f"map_solved {s['map_solved']}; JAX on the CPU (reference file): "
+        f"drift {s['jax_drift_pct']} %, ATE {s['jax_ate_m']} m, largest "
+        f"gap to its mapped position {s['max_engine_jax_gap_m']} m")
+    say(f"[drift] {tag}: over the first {s['oracle_frames']} frames drift "
+        f"{s['engine_drift_pct']} % against the f64 oracle's "
+        f"{s['oracle_drift_pct']} %: ratio {s['engine_over_oracle']} (limit "
+        f"{drift.oracle_limit(s['jax_over_oracle'])}; JAX's own "
+        f"{s['jax_over_oracle']}); ATE {s['engine_ate_m']} m, oracle "
+        f"{s['oracle_ate_m']} m")
+    for i, end in enumerate(s["blocks"]):
+        lo = res["blocks"][i]["frames"][0]
+        corner, surf = s["occupancy"][i]
+        ms = s["ms_per_scan"][i]
+        say(f"[drift] {tag} frames {lo}-{end - 1}: occupancy corner "
+            f"{corner:.4f} surf {surf:.4f}, map_overflow "
+            f"{s['map_overflow'][i]:.0f}, map_evicted "
+            f"{s['map_evicted'][i]:.0f}, largest gap to JAX "
+            f"{s['jax_gap_m'][i]:.4f} m, graphed "
+            + ("not measured" if ms is None else f"{ms:.3f} ms/scan")
+            + f" ({card})")
+    say(f"[drift] {tag} " + json.dumps(s))
+    fails = drift.gates(s)
+    if fails:
+        fail(f"[drift] {tag}: " + "; ".join(fails))
+    return {n: launches[n] for n in KERNELS}
+
+
+def run_drift(pipeline, mods, device, results, card) -> dict:
+    """Phase 14: the long-horizon run (``aloam_tpu_torch.drift``). (a) The
+    500-frame drift scene, rendered or read from ``.bench_cache/``;
+    (b) each path's kernels at its frame-1 inputs; (c) graphed against
+    eager over the first frames; (d) ``make_step_fn`` and (e)
+    ``batched_step_jit`` at B = 1 over all 500 frames, held to
+    tests/test_long_drift.py's gates and to the reference trajectories of
+    JAX and the f64 oracle (``tests/_torch_drift_ref.npz``). Returns the
+    launches of each path."""
+    from aloam_tpu_torch import drift
+    t_phase = time.perf_counter()
+    cfg = drift.DRIFT_CFG
+    traj, scans = drift.render_scene(drift.N_FRAMES)
+    frames = drift.device_frames(cfg, scans[:DRIFT_EQUAL_FRAMES], device)
+    say(f"[drift] (a) the drift scene: {len(scans)} frames, VLP-16 at 256 "
+        f"azimuth steps, {np.mean([len(s) for s in scans]):.0f} points a "
+        f"scan, {drift.SPEED * 0.1:g} m a frame; n_raw {cfg.n_raw}, "
+        f"ring_cap {cfg.ring_cap}, tables {cfg.map_table_corner} x "
+        f"{cfg.map_bucket_corner} / {cfg.map_table_surf} x "
+        f"{cfg.map_bucket_surf} ({time.perf_counter() - t_phase:.1f} s)")
+    with np.load(drift.REF) as z:
+        ref = dict(z)
+    drift_kernels(pipeline, mods, cfg, frames, device, results, card)
+    drift_graph_equal(pipeline, cfg, frames, device)
+    del frames
+    by_path = {f"drift_{tag}": drift_path(mods, tag, names, scans, traj,
+                                          ref, device, card)
+               for tag, names in (("step", SINGLE_KERNELS),
+                                  ("step_b", STEP_KERNELS))}
+    took = time.perf_counter() - t_phase
+    say(f"[drift] phase 14 took {took:.1f} s ({card})")
+    return by_path
+
+
 def main() -> None:
     import torch
 
@@ -2999,6 +3156,9 @@ def main() -> None:
     by_path = {"preset_rung": check_preset_rung(
         pipeline, mods, cfg, frames, gt, device, results, card),
         "bench": run_bench(kind, card)}
+
+    # ---- 14. the long-horizon run -----------------------------------------
+    by_path.update(run_drift(pipeline, mods, device, results, card))
 
     kernels = [dict(name=name, route="cuda", source=spec[3],
                     replaces=spec[4], launches=launches[name],
