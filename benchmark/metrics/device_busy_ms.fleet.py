@@ -1,0 +1,9 @@
+"""Device busy ms a frame on the fleet path: the union of the device
+operations' intervals under torch.profiler over the traced stretch, over
+its frames."""
+
+from benchmark.trace import busy_ms
+
+
+def read(record):
+    return busy_ms(record, "fleet")
