@@ -9,10 +9,10 @@ record) but ``step_gflops`` and ``mfu_pct``:
 The headline, ``value``, is aggregate scans/s over B independent streams
 stepped by the captured ``parallel.batched_step_jit`` (``pipeline.step_b``
 as a CUDA graph); ``ms_per_scan_single`` is one stream through the
-captured ``pipeline.make_step_fn``; with ``BENCH_STAGES=1``, ``stage_ms``
-times the front half, the odometry and the mapping of one stream, each a
-captured call of the single-stream API. Mirrors ``bench.py`` function by
-function and imports nothing of it.
+captured ``pipeline.make_step_fn``. Mirrors ``bench.py`` function by
+function and imports nothing of it; its ``BENCH_STAGES`` stage times are
+left out: the port's spans (``spans.py``) time each stage inside the
+compiled step.
 
 ``vs_baseline`` is relative to the reference's real-time design point of
 10 scans/s (scanPeriod 0.1 s, scanRegistration.cpp:60), ``vs_target`` to
@@ -22,8 +22,8 @@ no FLOPs and no MFU.
 Env knobs, with bench.py's defaults: BENCH_BATCH (streams, default 32,
 with 16 on the ladder too; 0 = one stream only), BENCH_FRAMES (timed
 frames of the one stream, 16), BENCH_BATCH_FRAMES (timed frames of the
-batched streams, 32), BENCH_STAGES=1 (per-stage times), BENCH_AZIMUTH
-(azimuth steps a ring, 1800), BENCH_BLOCKS (timed blocks, 3),
+batched streams, 32), BENCH_AZIMUTH (azimuth steps a ring, 1800),
+BENCH_BLOCKS (timed blocks, 3),
 BENCH_PRESET_RUNG=0 (skips the run at the untrimmed HDL-64 preset caps),
 BENCH_QCHUNK (``map_query_chunk``, 2048).
 
@@ -43,14 +43,12 @@ import time
 import numpy as np
 import torch
 
-from aloam_tpu_torch import geometry as geo
 from aloam_tpu_torch import graph, parallel, pipeline
 from aloam_tpu_torch.config import PRESETS
 from aloam_tpu_torch.eval import ate_rmse
 from aloam_tpu_torch.io import synthetic as syn
 from aloam_tpu_torch.ops import (assoc, insert, knn, lm, odom, select,
                                  tolerance, voxel)
-from aloam_tpu_torch.utils import tree
 
 _AZ = int(os.environ.get("BENCH_AZIMUTH", "1800"))
 _N_BLOCKS = int(os.environ.get("BENCH_BLOCKS", "3"))
@@ -265,64 +263,6 @@ def bench_batched(cfg, batch, n_frames, device):
             for b in range(batch)]
     return (float(np.median(rates)), rates[-1] - rates[0],
             max(ates), float(np.median(ates)), None)
-
-
-def _captured(fn, *trees):
-    """``fn(*trees)`` as a ``graph.FnGraph`` over the trees' tensor leaves:
-    call it with ``tree.tensors(inputs)`` of inputs shaped as ``trees``."""
-    def flat(*leaves):
-        it = iter(leaves)
-        return fn(*(tree.rebuild(t, it) for t in trees))
-    return graph.FnGraph(flat)
-
-
-def bench_stages(cfg, device, reps=6):
-    """ms of one stream's front half (``register_scan`` then
-    ``extract_features``), ``odometry_step`` and ``mapping.mapping_step``,
-    each a captured call (``graph.FnGraph``) timed over ``reps`` - 1 calls
-    after one that captures, on seed 3 at 10 m/s after 4 frames of the
-    step. Each call copies its inputs into the graph's buffers, so every
-    mapping call starts from the same map (the step updates its tables in
-    place); that copy and the clone of the outputs are in the time."""
-    from aloam_tpu_torch import mapping as mp
-    from aloam_tpu_torch import odometry as od
-    from aloam_tpu_torch.frontend import extract_features, register_scan
-    from aloam_tpu_torch.utils.batch import add_stream_axis, drop_stream_axis
-
-    xyz, mask, _ = _cached_sequence(reps + 4, 3, 10.0)
-    frames = list(zip(_on(device, xyz), _on(device, mask)))
-    step1 = pipeline.make_step_fn(cfg, donate=False)
-    state = pipeline.init_state(cfg, 1, device)
-    for x, m in frames[:4]:
-        state, out = step1(state, x, m)
-    out.t_map.cpu()
-
-    def timeit(fn, inputs):
-        out = fn(*inputs[0])
-        tree.tensors(out)[0].cpu()
-        t0 = time.perf_counter()
-        for inp in inputs[1:]:
-            out = fn(*inp)
-        tree.tensors(out)[0].cpu()
-        return 1e3 * (time.perf_counter() - t0) / (len(inputs) - 1)
-
-    ff = graph.FnGraph(lambda x, m: extract_features(
-        *register_scan(x, m, cfg)[:2], cfg))
-    feats = [ff(x, m) for x, m in frames[4:]]
-    odom = drop_stream_axis(state.odom)
-    q0 = geo.qidentity(device)[None]
-    t0_ = torch.zeros((1, 3), device=device)
-    ostep = _captured(lambda s, f: od.odometry_step(s, f, cfg), odom,
-                      feats[0])
-    mstep = _captured(lambda s, c, f: mp.mapping_step(
-        s, add_stream_axis(c), add_stream_axis(f), q0, t0_, cfg),
-        state.map, feats[0].less_sharp, feats[0].less_flat)
-    out = {"frontend": timeit(ff, frames[4:]),
-           "odometry": timeit(ostep, [tree.tensors((odom, f))
-                                      for f in feats]),
-           "mapping": timeit(mstep, [tree.tensors(
-               (state.map, f.less_sharp, f.less_flat)) for f in feats])}
-    return {k: round(v, 2) for k, v in out.items()}
 
 
 # --- the kernels on the card against their plain versions ------------------
@@ -718,9 +658,6 @@ def main(device="cuda"):
 
     result["vs_baseline"] = round(result["value"] / 10.0, 2)
     result["vs_target"] = round(result["value"] / 500.0, 3)
-
-    if os.environ.get("BENCH_STAGES"):
-        result["stage_ms"] = bench_stages(cfg, device)
 
     print(json.dumps(result))
 

@@ -6,7 +6,12 @@ step (``pipeline.step``) on one device, logging per-frame metrics (JSONL)
 and writing the trajectory (TUM format and npz), the evaluation against
 the ground truth, and optional checkpoints, map clouds and PNGs. It takes
 the JAX package's flags plus ``--device``: ``cuda`` (the default) runs the
-CUDA kernels and fails without a card; ``cpu`` runs their plain versions.
+CUDA kernels and fails without a card; ``cpu`` runs their plain versions;
+and ``--trace``: the port's spans (``spans.py``) on, each frame's span ms
+in its ``metrics.jsonl`` record under ``span_ms``, the counterpart of the
+reference's per-stage TicToc printouts (scanRegistration.cpp:254,409-410,
+456; laserOdometry.cpp:486,500,502,592-593; laserMapping.cpp:552,560,710,
+721,728,784,802,850-852).
 
 Examples:
     python -m aloam_tpu_torch.cli --preset HDL-64 --synthetic --frames 100 \
@@ -18,6 +23,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -26,7 +32,7 @@ import os
 def build_parser() -> argparse.ArgumentParser:
     """The JAX CLI's flags, choices and defaults (``aloam_tpu/cli.py``), so
     a command line moves between the two packages unchanged, plus
-    ``--device``."""
+    ``--device`` and ``--trace``."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--preset", default="HDL-64",
                    choices=["VLP-16", "HDL-32", "HDL-64"])
@@ -62,6 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the kernels; needs a card) or "
                         "cpu (their plain versions)")
+    p.add_argument("--trace", action="store_true",
+                   help="record the port's spans (each stage's device time, "
+                        "the compiled step's host parts) and write each "
+                        "frame's span ms into metrics.jsonl (span_ms)")
     return p
 
 
@@ -76,7 +86,7 @@ def main(argv=None):
     from aloam_tpu_torch.io import synthetic as syn
     from aloam_tpu_torch.utils.tictoc import TicToc
     from aloam_tpu_torch import mapping as mp
-    from aloam_tpu_torch import pipeline
+    from aloam_tpu_torch import pipeline, spans
     from aloam_tpu_torch.utils import checkpoint as ckpt
 
     device = torch.device(args.device)
@@ -136,7 +146,8 @@ def main(argv=None):
     traj_odom, traj_map, traj_hf, stamps = [], [], [], []
     t_all = TicToc()
     frames = itertools.islice(frames, args.skip_first, None)
-    with open(metrics_path, "w") as mf:
+    traced = spans.tracing() if args.trace else contextlib.nullcontext()
+    with traced, open(metrics_path, "w") as mf:
         for i, (xyz, mask, ts) in enumerate(frames):
             if i >= args.frames:
                 break
@@ -165,6 +176,12 @@ def main(argv=None):
             stamps.append(ts)
             rec = {"frame": i, "t": ts, "wall_ms": round(wall, 2)}
             rec.update(m)
+            if args.trace:
+                # drained after the pose's transfer: the stamps are done
+                span_ms = rec["span_ms"] = {}
+                for ms in spans.frame_ms(spans.drain()):
+                    for name, v in ms.items():
+                        span_ms[name] = span_ms.get(name, 0.0) + v
             mf.write(json.dumps(rec) + "\n")
             if (m["corner_corr"] + m["plane_corr"]) < 10 and i > 0:
                 print(f"frame {i}: less correspondence! "

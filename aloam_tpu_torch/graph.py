@@ -36,6 +36,15 @@ capture stream while a graph is captured.
   and warms the allocator, and leaves the real state alone. The capture
   itself runs nothing on the device. A capture or a replay that fails
   raises; nothing falls back to eager.
+* **Tracing** (``spans``, off by default). With host spans on, a call
+  records ``step.copy_in`` (the slot, the state and input copies, the
+  graph's lookup), ``step.launch`` (the replay, or the eager body) and
+  ``step.clone_out`` inside ``step``. With device stages on, the body's
+  stages stamp the device clock: a slot's graph key is (gate pattern,
+  stamped), so stamps capture a second graph and leave the untraced one
+  as it is, and each replay of the stamped graph clones its stamp buffers
+  out of the pool into the spans log. With tracing off a call checks two
+  flags and records nothing.
 * **The mapping gate.** ``state.frame`` stays a host int, and
   ``pipeline._gated_mapping`` chooses on the host (``pipeline.maps_at``),
   so each pattern of the gate over a call's frames has its own graph: two
@@ -72,6 +81,7 @@ from typing import NamedTuple
 
 import torch
 
+from aloam_tpu_torch import spans
 from aloam_tpu_torch.utils.tree import map_tensors
 from aloam_tpu_torch.utils.tree import rebuild as _rebuild
 from aloam_tpu_torch.utils.tree import tensors as _tensors
@@ -128,7 +138,7 @@ class _Slot:
         self.xyz = torch.empty_like(xyz, memory_format=torch.contiguous_format)
         self.mask = torch.empty_like(mask,
                                      memory_format=torch.contiguous_format)
-        self.graphs: dict = {}         # gate pattern -> Captured
+        self.graphs: dict = {}         # graph_key -> Captured
 
     def holds(self, state) -> bool:
         return all(_same(a, b) for a, b in zip(_tensors(state),
@@ -136,12 +146,14 @@ class _Slot:
 
 
 class Captured(NamedTuple):
-    """One captured graph, the outputs it writes (in its pool), and the
-    host milliseconds its capture and its instantiation took."""
+    """One captured graph, the outputs it writes (in its pool), the host
+    milliseconds its capture and its instantiation took, and the frames of
+    device stages it stamps (``spans.Frame``, buffers in its pool)."""
     graph: torch.cuda.CUDAGraph
     outputs: tuple
     capture_ms: float
     instantiate_ms: float
+    frames: tuple = ()
 
 
 class StepGraph:
@@ -160,14 +172,46 @@ class StepGraph:
 
     def __call__(self, state, xyz: torch.Tensor, mask: torch.Tensor):
         """One frame: (new state, outputs)."""
-        new, outs = self.run(state, xyz[None], mask[None])
-        return new, map_tensors(lambda o: o[0], outs)
+        return self._call(state, xyz[None], mask[None], lambda o: o[0])
 
     def run(self, state, xyz_seq: torch.Tensor, mask_seq: torch.Tensor):
         """The step over every frame of (F, ...) input stacks from
         ``state``: (the state after them, the outputs stacked along a
         leading frame axis). On a CUDA state all F frames are one graph,
         replayed once."""
+        return self._call(state, xyz_seq, mask_seq, None)
+
+    def _call(self, state, xyz_seq, mask_seq, pick):
+        """A call in three parts: the copies in, the launch, the clones
+        out (``pick`` applied to each output). With tracing on
+        (``spans``), the same parts inside the host spans ``step``,
+        ``step.copy_in``, ``step.launch`` and ``step.clone_out``."""
+        if spans.host_on or spans.device_on:
+            return self._traced(state, xyz_seq, mask_seq, pick)
+        slot, cap = self._copy_in(state, xyz_seq, mask_seq)
+        outs = self._launch(slot, cap, state.frame)
+        return self._clone_out(slot, cap, state, outs, pick)
+
+    def _traced(self, state, xyz_seq, mask_seq, pick):
+        with spans.call(state.frame), spans.host("step"):
+            with spans.host("step.copy_in"):
+                slot, cap = self._copy_in(state, xyz_seq, mask_seq)
+            with spans.host("step.launch"):
+                outs = self._launch(slot, cap, state.frame)
+            with spans.host("step.clone_out"):
+                return self._clone_out(slot, cap, state, outs, pick)
+
+    def graph_key(self, frame0: int, n: int) -> tuple:
+        """The key of a slot's graph for n frames from ``frame0``: the
+        gate's pattern over them, and whether device stages are stamped
+        (a second graph, the untraced one left as it is)."""
+        return tuple(self.gate(frame0 + f) for f in range(n)), \
+            spans.device_on
+
+    def _copy_in(self, state, xyz_seq, mask_seq):
+        """The slot of the inputs' key (made at first use), the state and
+        the inputs copied into its static buffers, and the graph to replay
+        (captured at first use; None where the body runs eagerly)."""
         key = _key_of(_tensors(state) + [xyz_seq, mask_seq])
         slot = self.slots.get(key)
         if slot is None:
@@ -177,33 +221,51 @@ class StepGraph:
             copy_into(_tensors(slot.state), _tensors(state))
         slot.xyz.copy_(xyz_seq)
         slot.mask.copy_(mask_seq)
-        n = xyz_seq.shape[0]
-        if slot.xyz.is_cuda and self.capture:
-            pattern = tuple(self.gate(state.frame + f) for f in range(n))
-            cap = slot.graphs.get(pattern)
-            if cap is None:
-                cap = slot.graphs[pattern] = self._capture(slot, state.frame,
-                                                           pattern)
-            outs = _replayed(cap)
-        else:
-            outs = self._body(slot, state.frame)
-        new = slot.state._replace(frame=state.frame + n)
+        if not (slot.xyz.is_cuda and self.capture):
+            return slot, None
+        key = self.graph_key(state.frame, xyz_seq.shape[0])
+        cap = slot.graphs.get(key)
+        if cap is None:
+            cap = slot.graphs[key] = self._capture(slot, state.frame, key[0])
+        return slot, cap
+
+    def _launch(self, slot: _Slot, cap, frame0: int):
+        """The replay of ``cap`` (its outputs, in its pool), or the body
+        run eagerly."""
+        return self._body(slot, frame0) if cap is None else _replay(cap)
+
+    def _clone_out(self, slot: _Slot, cap, state, outs, pick):
+        """The outputs cloned out of a replayed graph's pool (and its
+        stamps, into the spans log), and the new state."""
+        if cap is not None:
+            outs = _cloned(outs)
+            spans.replayed(cap.frames)
+        if pick is not None:
+            outs = map_tensors(pick, outs)
+        new = slot.state._replace(frame=state.frame + slot.xyz.shape[0])
         return (new if self.donate else _cloned(new)), outs
 
     def _body(self, slot: _Slot, frame0: int):
         """What the graph runs: the step over the static input stacks from
         the static state, each frame's outputs copied into stacks, then
-        the new state copied into the static state. Returns the stacks."""
+        the new state copied into the static state. Returns the stacks.
+        Each frame is a ``spans.frame``; the copies are its ``outputs``
+        stage."""
         n = slot.xyz.shape[0]
         st, stacks = slot.state._replace(frame=frame0), None
         for f in range(n):
-            st, out = self.step(st, slot.xyz[f], slot.mask[f])
-            if stacks is None:
-                stacks = _rebuild(out, iter([o.new_empty((n,) + o.shape)
-                                             for o in _tensors(out)]))
-            for s, o in zip(_tensors(stacks), _tensors(out), strict=True):
-                s[f].copy_(o)
-        copy_into(_tensors(slot.state), _tensors(st))
+            with spans.frame(slot.xyz.device, f):
+                st, out = self.step(st, slot.xyz[f], slot.mask[f])
+                with spans.stage("outputs"):
+                    if stacks is None:
+                        stacks = _rebuild(out, iter([
+                            o.new_empty((n,) + o.shape)
+                            for o in _tensors(out)]))
+                    for s, o in zip(_tensors(stacks), _tensors(out),
+                                    strict=True):
+                        s[f].copy_(o)
+                    if f == n - 1:
+                        copy_into(_tensors(slot.state), _tensors(st))
         return stacks
 
     def _capture(self, slot: _Slot, frame0: int, pattern: tuple) -> Captured:
@@ -231,23 +293,25 @@ def _captured(dev: torch.device, warm_up, body) -> Captured:
             warm_up()
         torch.cuda.current_stream(dev).wait_stream(side)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), spans.capturing() as frames:
             outputs = body()
         t1 = time.perf_counter()
         graph.instantiate()
         t2 = time.perf_counter()
     global captures
     captures += 1
-    return Captured(graph, outputs, (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+    return Captured(graph, outputs, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                    tuple(frames))
 
 
-def _replayed(cap: Captured):
-    """One replay of ``cap`` on the current stream, its outputs cloned out
-    of the graph's pool; counted in :data:`replays`."""
+def _replay(cap: Captured):
+    """One replay of ``cap`` on the current stream, counted in
+    :data:`replays`: its outputs, in its pool (the next replay overwrites
+    them; callers clone them out)."""
     cap.graph.replay()
     global replays
     replays += 1
-    return _cloned(cap.outputs)
+    return cap.outputs
 
 
 class FnGraph:
@@ -283,4 +347,4 @@ class FnGraph:
         # inputs (a step that updates the map tables in place)
         for s, a in zip(slot[0], args, strict=True):
             s.copy_(a)
-        return _replayed(slot[1])
+        return _cloned(_replay(slot[1]))

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from aloam_tpu_torch import geometry as geo
-from aloam_tpu_torch import solver
+from aloam_tpu_torch import solver, spans
 from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend.voxel import voxel_downsample_masked_b
 from aloam_tpu_torch.ops import assoc as assoc_op
@@ -159,13 +159,15 @@ def _associations(stack_xyz, stack_mask, grid: gridmap.GridMap, q, t,
     shared fit gates and zeroes them, then ``assoc_xla``. stack_xyz (Q, 3)
     sensor frame, stack_mask (Q,), grid leaves (H, ·), pose q (4,),
     t (3,)."""
-    sel = geo.qrot(q, stack_xyz) + t
-    d2, near = gridmap.knn(grid, sel, 5, cfg.knn_cell, cfg.knn_radius,
-                           cfg.map_query_chunk)
-    d2 = torch.where(stack_mask[:, None], d2, float("inf"))
-    out8 = assoc_op.assoc_xla(d2, near, cfg.map_knn_gate_sq, kind,
-                              **_assoc_kw(cfg))
-    return _factors_of(out8, stack_xyz, kind)
+    with spans.stage("map.knn"):
+        sel = geo.qrot(q, stack_xyz) + t
+        d2, near = gridmap.knn(grid, sel, 5, cfg.knn_cell, cfg.knn_radius,
+                               cfg.map_query_chunk)
+        d2 = torch.where(stack_mask[:, None], d2, float("inf"))
+    with spans.stage("map.fit"):
+        out8 = assoc_op.assoc_xla(d2, near, cfg.map_knn_gate_sq, kind,
+                                  **_assoc_kw(cfg))
+        return _factors_of(out8, stack_xyz, kind)
 
 
 def corner_associations(stack_xyz, stack_mask, grid: gridmap.GridMap, q, t,
@@ -304,10 +306,11 @@ def _start(state: MapState, corner_in: PointCloud, surf_in: PointCloud,
     q_w = geo.qmul(state.q_wmap_wodom, q_wodom)
     t_w = geo.qrot(state.q_wmap_wodom, t_wodom) + state.t_wmap_wodom
     pose_cell = gridmap._cells_of(t_w, cfg.knn_cell)
-    state, cleared, n_map_corner, n_map_surf = _eager_evict_count(
-        state, pose_cell, cfg, shard)
-    solve_ok = (n_map_corner > cfg.map_min_corner) \
-        & (n_map_surf > cfg.map_min_surf)
+    with spans.stage("map.evict"):
+        state, cleared, n_map_corner, n_map_surf = _eager_evict_count(
+            state, pose_cell, cfg, shard)
+        solve_ok = (n_map_corner > cfg.map_min_corner) \
+            & (n_map_surf > cfg.map_min_surf)
 
     def downsample(cloud, leaf, cap):
         vals = torch.cat([cloud.xyz, cloud.intensity[..., None]], dim=-1)
@@ -316,9 +319,11 @@ def _start(state: MapState, corner_in: PointCloud, surf_in: PointCloud,
         return PointCloud(xyz=out[..., :3], intensity=out[..., 3],
                           mask=m), dropped
 
-    corner, dc = downsample(corner_in, cfg.line_resolution,
-                            cfg.corner_stack_cap)
-    surf, ds_ = downsample(surf_in, cfg.plane_resolution, cfg.surf_stack_cap)
+    with spans.stage("map.downsample"):
+        corner, dc = downsample(corner_in, cfg.line_resolution,
+                                cfg.corner_stack_cap)
+        surf, ds_ = downsample(surf_in, cfg.plane_resolution,
+                               cfg.surf_stack_cap)
     return _Start(state=state, q_w=q_w, t_w=t_w, solve_ok=solve_ok,
                   corner=corner, surf=surf, n_map_corner=n_map_corner,
                   n_map_surf=n_map_surf, cleared=cleared, dropped=dc + ds_)
@@ -343,9 +348,11 @@ def _finish(st: _Start, corner: PointCloud, surf: PointCloud, q_w, t_w,
             cfg.knn_cell, center, window, cfg.map_insert_point_cap,
             cfg.map_insert_cell_cap, shard)
 
-    corner_g, _, _, ev1, dr1 = ins(st.state.corner, corner,
-                                   cfg.line_resolution)
-    surf_g, _, _, ev2, dr2 = ins(st.state.surf, surf, cfg.plane_resolution)
+    with spans.stage("map.insert"):
+        corner_g, _, _, ev1, dr1 = ins(st.state.corner, corner,
+                                       cfg.line_resolution)
+        surf_g, _, _, ev2, dr2 = ins(st.state.surf, surf,
+                                     cfg.plane_resolution)
     new_state = MapState(corner=corner_g, surf=surf_g,
                          q_wmap_wodom=q_wmap_wodom,
                          t_wmap_wodom=t_wmap_wodom, q_w=q_w, t_w=t_w)
@@ -404,28 +411,32 @@ def mapping_step_b(state: MapState, corner_in: PointCloud,
     c_cache = s_cache = cells0 = None
     for _ in range(cfg.map_outer_rounds):
         if c_cache is None or not cfg.map_cache_reuse:
-            c_cache, corner = build_cache(st.state.corner, corner, q_w, t_w)
-            s_cache, surf = build_cache(st.state.surf, surf, q_w, t_w)
-            spills = spills + c_cache.n_spilled + s_cache.n_spilled
-        sel_c, sel_s = _world(q_w, t_w, corner), _world(q_w, t_w, surf)
-        live_c = corner.mask & st.solve_ok[:, None]
-        live_s = surf.mask & st.solve_ok[:, None]
-        if cfg.map_cache_reuse:
-            # the reuse deviation: queries whose base cell moved since
-            # round 1
-            cells0, n = _n_crossed(cells0, sel_c, sel_s, live_c, live_s,
-                                   cfg)
-            crossed = crossed + n
-        c8, csp = _assoc_out8_b(sel_c, ~live_c, c_cache, cfg, "corner")
-        s8, ssp = _assoc_out8_b(sel_s, ~live_s, s_cache, cfg, "surf")
-        spills = spills + csp + ssp
-        edges = _factors_of(c8, corner.xyz, "corner")
-        planes = _factors_of(s8, surf.xyz, "surf")
-        q_w, t_w, stats = lm_solve_b(edges, planes, q_w, t_w,
-                                     cfg.map_lm_iters, cfg.huber_delta)
-        degen = degen + stats.clamped + stats.nonfinite
-        n_edge = edges.mask.sum(dim=1)
-        n_plane = planes.mask.sum(dim=1)
+            with spans.stage("map.cache"):
+                c_cache, corner = build_cache(st.state.corner, corner, q_w,
+                                              t_w)
+                s_cache, surf = build_cache(st.state.surf, surf, q_w, t_w)
+                spills = spills + c_cache.n_spilled + s_cache.n_spilled
+        with spans.stage("map.assoc"):
+            sel_c, sel_s = _world(q_w, t_w, corner), _world(q_w, t_w, surf)
+            live_c = corner.mask & st.solve_ok[:, None]
+            live_s = surf.mask & st.solve_ok[:, None]
+            if cfg.map_cache_reuse:
+                # the reuse deviation: queries whose base cell moved since
+                # round 1
+                cells0, n = _n_crossed(cells0, sel_c, sel_s, live_c, live_s,
+                                       cfg)
+                crossed = crossed + n
+            c8, csp = _assoc_out8_b(sel_c, ~live_c, c_cache, cfg, "corner")
+            s8, ssp = _assoc_out8_b(sel_s, ~live_s, s_cache, cfg, "surf")
+            spills = spills + csp + ssp
+            edges = _factors_of(c8, corner.xyz, "corner")
+            planes = _factors_of(s8, surf.xyz, "surf")
+        with spans.stage("map.lm"):
+            q_w, t_w, stats = lm_solve_b(edges, planes, q_w, t_w,
+                                         cfg.map_lm_iters, cfg.huber_delta)
+            degen = degen + stats.clamped + stats.nonfinite
+            n_edge = edges.mask.sum(dim=1)
+            n_plane = planes.mask.sum(dim=1)
     return _finish(st, corner, surf, q_w, t_w, q_wodom, t_wodom, cfg,
                    n_edge, n_plane, degen, spills, crossed, shard)
 
@@ -467,11 +478,13 @@ def mapping_step(state: MapState, corner_in: PointCloud,
                                     q_w[0], t_w[0], cfg)
         planes = surf_associations(surf.xyz[0], live_s[0], grid_s, q_w[0],
                                    t_w[0], cfg)
-        q_w, t_w, stats = lm_solve_b(_batch1(edges), _batch1(planes), q_w,
-                                     t_w, cfg.map_lm_iters, cfg.huber_delta)
-        degen = degen + stats.clamped + stats.nonfinite
-        n_edge = edges.mask.sum()[None]
-        n_plane = planes.mask.sum()[None]
+        with spans.stage("map.lm"):
+            q_w, t_w, stats = lm_solve_b(_batch1(edges), _batch1(planes),
+                                         q_w, t_w, cfg.map_lm_iters,
+                                         cfg.huber_delta)
+            degen = degen + stats.clamped + stats.nonfinite
+            n_edge = edges.mask.sum()[None]
+            n_plane = planes.mask.sum()[None]
     return _finish(st, corner, surf, q_w, t_w, q_wodom, t_wodom, cfg,
                    n_edge, n_plane, degen, torch.zeros_like(degen), crossed)
 

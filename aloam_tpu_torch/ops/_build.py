@@ -48,6 +48,7 @@ SIGNATURES = {
     "aloam_merge_rows": (_P,) * 12 + (_I,) * 5 + (_F, _F, _P),
     "aloam_knn_select": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "aloam_knn_grid": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "aloam_stamp": (_P, _I, _P),
 }
 
 

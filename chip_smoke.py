@@ -44,7 +44,10 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    map merge (``merge_tiles``, ``insert.merge_rows``) with both tables
    bit-equal to its plain version's as a whole (no row used, every point
    merging, evictions in both priority classes, priority ties, cnt past
-   the cap; (Bk, P) (32, 16), (48, 16), (48, 48), (128, 128)). A kernel
+   the cap; (Bk, P) (32, 16), (48, 16), (48, 48), (128, 128)); the
+   stamp of the port's spans (``aloam_stamp``) alone, eager and in a CUDA
+   graph: stamps rise with their slot and, on the host clock, lie between
+   host readings around the launches (``check_stamp``). A kernel
    that updates the tables in place gets a fresh clone of them for every
    call, timed calls included;
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
@@ -54,9 +57,11 @@ of JAX or of the JAX package. Phases, each printing its own lines:
 6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its six
    launch counters must rise, ``ring_seg`` > 0 as in phase 5) and with
    the plain versions; map poses must agree (tightly unless a gate
-   flipped); a third kernel run times each stage and mapping sub-stage
-   with CUDA events (its device span), a fourth under torch.profiler
-   gives each stage's device busy time and the device's idle share;
+   flipped); a third kernel run reads each stage's device span from the
+   port's spans (``spans.stage``: ``%globaltimer`` stamps), a fourth under
+   torch.profiler gives each span's device busy time (the operations
+   inside the record_function range each stage opens under a profiler)
+   and the device's idle share;
    scans/s, peak device
    memory and the odometry and mapped ATE against the ground truth (must
    be < 0.5 m);
@@ -93,8 +98,9 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    ``step`` give it (two launches bit-equal; timed beside the s-free
    launch on the same factors; its adversarial cases run in phase 4);
    the distorted ``step_b`` and ``step`` with the kernels and with the
-   plain versions (poses as in phase 6, ms/frame, staged device spans
-   with the slerp transforms, busy ms and the idle share); and on the
+   plain versions (poses as in phase 6, ms/frame, the device spans, the
+   slerp transforms inside odom.assoc / odom.handoff, busy ms and the
+   idle share); and on the
    same scenes with the kernels,
    the frame-to-frame translation error from frame 2 on must fall below
    0.75 of the rigid model's in the mean over streams and below it on
@@ -168,7 +174,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    as in phase 6; then ``python -m aloam_tpu_torch.pregen_streams`` and
    ``python -m aloam_tpu_torch.bench`` as child processes, each with a
    time limit, at BENCH_BATCH=16 BENCH_BATCH_FRAMES=8 BENCH_FRAMES=8
-   BENCH_STAGES=1 (the bench checks every kernel against its plain
+   (the bench checks every kernel against its plain
    version on the card first, and step_b's again at each batched run's
    frame-1 inputs); each of its runs must launch every kernel
    of its path (the counts it prints); its last line must carry exactly
@@ -267,16 +273,15 @@ DIST_SINGLE_CACHE = os.path.join(
     CACHE_DIR, f"chip_smoke_dist_single_hdl64_a{N_AZIMUTH}_f{N_FRAMES}_"
     f"s{DIST_SINGLE_SEED}.npz")
 # phase 13: the bench's settings, the keys of its line (bench.py's, as in
-# BENCH_r05.json, but step_gflops and mfu_pct; stage_ms with BENCH_STAGES)
+# BENCH_r05.json, but step_gflops and mfu_pct)
 # and the time limits of its two child processes
 BENCH_ENV = {"BENCH_BATCH": "16", "BENCH_BATCH_FRAMES": "8",
-             "BENCH_FRAMES": "8", "BENCH_STAGES": "1"}
+             "BENCH_FRAMES": "8"}
 BENCH_KEYS = {"metric", "unit", "device_kind", "ms_per_scan_single",
               "ate_rmse_m", "frames", "value", "batch", "blocks",
               "spread_sps", "ate_batched_max_m", "ate_batched_med_m",
               "batch_frames", "batch_ladder", "bench_caps", "value_preset",
-              "ate_preset_max_m", "preset_caps", "vs_baseline", "vs_target",
-              "stage_ms"}
+              "ate_preset_max_m", "preset_caps", "vs_baseline", "vs_target"}
 PREGEN_TIMEOUT_S, BENCH_TIMEOUT_S = 240, 420
 # phase 14: the frames over which graphed and eager must be bit-equal
 DRIFT_EQUAL_FRAMES = 20
@@ -331,42 +336,6 @@ DIST_SINGLE_KERNELS = SINGLE_KERNELS + ("lm_fused_s",)
 # bytes/s and fp32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-# step_b's stages and mapping sub-stages, timed with CUDA events:
-# label -> (module, attribute called through it)
-STAGES = {
-    "register": ("aloam_tpu_torch.pipeline", "register_scan_b"),
-    "features": ("aloam_tpu_torch.pipeline", "extract_features_b"),
-    "odometry": ("aloam_tpu_torch.odometry", "odometry_step_b"),
-    "mapping": ("aloam_tpu_torch.mapping", "mapping_step_b"),
-    "map.evict": ("aloam_tpu_torch.mapping", "_eager_evict_count"),
-    "map.downsample": ("aloam_tpu_torch.mapping",
-                       "voxel_downsample_masked_b"),
-    "map.cache_build": ("aloam_tpu_torch.ops.gridmap", "knn_cache_b"),
-    "map.assoc": ("aloam_tpu_torch.mapping", "_assoc_out8_b"),
-    "map.lm": ("aloam_tpu_torch.mapping", "lm_solve_b"),
-    "map.insert": ("aloam_tpu_torch.ops.gridmap", "insert_vds_b"),
-}
-# the single-stream step's stages: its front half is step_b's at B = 1,
-# its mapping searches exactly every round (gridmap.knn)
-SINGLE_STAGES = {
-    **{k: v for k, v in STAGES.items() if k in ("register", "features",
-                                                 "odometry", "map.evict",
-                                                 "map.downsample",
-                                                 "map.lm", "map.insert")},
-    "mapping": ("aloam_tpu_torch.mapping", "mapping_step"),
-    "map.knn": ("aloam_tpu_torch.ops.gridmap", "knn"),
-    "map.fit": ("aloam_tpu_torch.ops.assoc", "assoc_xla"),
-}
-# the distortion path's odometry: every per-point slerp transform (the
-# correspondences' and the first half of the handoff's), the whole
-# TransformToEnd handoff, and the odometry solves
-DIST_ODOM_STAGES = {
-    "odom.to_start": ("aloam_tpu_torch.odometry", "_transform_to_start_b"),
-    "odom.to_end": ("aloam_tpu_torch.odometry", "transform_to_end_b"),
-    "odom.lm": ("aloam_tpu_torch.solver", "lm_solve_b"),
-}
-
-
 def launch_count(mods, name: str) -> int:
     return getattr(mods[name], COUNTERS.get(name, "launches"))
 
@@ -1170,6 +1139,68 @@ def check_adversarial_merge(mods, device, card):
     check_insert_twin(mods, device, card)
 
 
+def check_stamp(device, card):
+    """The stamp kernel (``ops/stamp.py``) alone, eager and as graph nodes:
+    64 stamps on one stream, a ~1 us sleep between each two, must rise
+    with their slot, and each, put on the host clock by the offset
+    ``spans.enable`` measures, must fall between host readings taken
+    before the launches and after a synchronise, within the offset's error
+    bound; in a CUDA graph, the same for each of two replays. Prints the
+    least step between stamps launched back to back, eager (the host's
+    launch rate) and as graph nodes (a stamp node's own cost)."""
+    import torch
+
+    from aloam_tpu_torch import spans
+    from aloam_tpu_torch.ops import stamp as stamp_op
+    n = 64
+    spans.enable(host=False, device=True)
+    spans.disable()
+    off, err = spans.offset(device)
+
+    def launch(buf, sleep=True):
+        for i in range(n):
+            stamp_op.stamp(buf, i)
+            if sleep:
+                torch.cuda._sleep(2000)
+
+    def timed(run, buf, tag):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter_ns()
+        run()
+        torch.cuda.synchronize()
+        h1 = time.perf_counter_ns()
+        ts = np.asarray(buf.tolist(), dtype=np.int64)
+        if not (np.diff(ts) > 0).all():
+            fail(f"[stamp] {tag}: stamps do not rise with their slot: "
+                 f"{ts.tolist()}")
+        lo, hi = int(ts[0]) + off - h0, h1 - (int(ts[-1]) + off)
+        if min(lo, hi) < -err:
+            fail(f"[stamp] {tag}: stamps on the host clock {lo} ns after "
+                 f"the launch and {hi} ns before the synchronise's end, "
+                 f"past the offset's error {err} ns")
+        return ts
+
+    buf = torch.zeros(n, dtype=torch.int64, device=device)
+    timed(lambda: launch(buf), buf, "eager")
+    eager = int(np.diff(timed(lambda: launch(buf, False), buf,
+                              "back to back")).min())
+    g, gbuf = torch.cuda.CUDAGraph(), torch.zeros_like(buf)
+    with torch.cuda.graph(g):
+        launch(gbuf)
+    first = timed(g.replay, gbuf, "graph replay 1")
+    second = timed(g.replay, gbuf, "graph replay 2")
+    if second[0] <= first[-1]:
+        fail("[stamp] the second replay's stamps are not after the first's")
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        launch(gbuf, False)
+    nodes = int(np.diff(timed(g.replay, gbuf, "graph back to back")).min())
+    say(f"[stamp] {n} stamps rise with their slot and lie inside the host's "
+        f"window, eager and in two graph replays; offset error {err} ns; "
+        f"least step back to back {eager} ns eager, {nodes} ns as graph "
+        f"nodes ({card})")
+
+
 def check_insert_twin(mods, device, card):
     """Phase 4, sixth part, last: the single-stream ``gridmap.insert`` at
     JAX's default caps on a table of Bk 48 (the preset's surf buckets),
@@ -1313,117 +1344,96 @@ def run_front(pipeline, mods, cfg, frames, device, card):
         f"{B * 1e3 / sp:.1f} scans/s (B={B}, {card})")
 
 
-def stage_times(step, stages, pipeline, cfg, frames, device, batch):
-    """A kernel run of ``step`` with CUDA events around each stage and
-    mapping sub-stage (the device time between the stage's first and last
-    operation). Returns {label: per-frame ms list}."""
-    import torch
-    events = {label: [] for label in stages}
-
-    def timed(label, fn):
-        def call(*args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            events[label][-1].append((start, end))
-            return out
-        return call
-
-    swaps = []
-    for label, (mod_name, attr) in stages.items():
-        mod = importlib.import_module(mod_name)
-        swaps.append((mod, attr, timed(label, getattr(mod, attr))))
-    per_frame = {label: [] for label in stages}
-    with Patched(swaps):
-        st = pipeline.init_state(cfg, batch, device)
-        for xyz, mask in frames:
-            for label in stages:
-                events[label].append([])
-            st, _ = step(st, xyz, mask, cfg)
-            torch.cuda.synchronize()
-            for label in stages:
-                per_frame[label].append(sum(s.elapsed_time(e)
-                                            for s, e in events[label][-1]))
-    return per_frame
-
-
-def stage_busy(step, stages, pipeline, cfg, frames, device, batch):
-    """A kernel run of ``step`` with frames 1.. under torch.profiler, each
-    stage and mapping sub-stage in a record_function range: the device
-    time of the kernels each stage launched (the device's idle gaps left
-    out, unlike the CUDA-event spans of stage_times), the device's busy
-    time per frame and the frame's wall time under the profiler. Returns
-    ({label: ms per frame}, busy ms per frame, wall ms per frame,
-    kernels per frame, {device operation: ms per frame})."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def labelled(label, fn):
-        def call(*args, **kw):
-            with record_function(label):
-                return fn(*args, **kw)
-        return call
-
-    swaps = []
-    for label, (mod_name, attr) in stages.items():
-        mod = importlib.import_module(mod_name)
-        swaps.append((mod, attr, labelled(label, getattr(mod, attr))))
-    n = len(frames) - 1
-    with Patched(swaps):
-        st = pipeline.init_state(cfg, batch, device)
-        st, _ = step(st, *frames[0], cfg)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for xyz, mask in frames[1:]:
+def stage_times(step, pipeline, cfg, frames, device, batch):
+    """A kernel run of ``step`` with the port's device stages on (each
+    frame a ``spans.frame``: every stage between two ``%globaltimer``
+    stamps). Returns {span: per-frame ms list}, each span summed over its
+    frame, and ``graph``: the first stamp to the last."""
+    from aloam_tpu_torch import spans
+    st = pipeline.init_state(cfg, batch, device)
+    with spans.tracing(host=False, device=True):
+        for i, (xyz, mask) in enumerate(frames):
+            with spans.frame(device, i):
                 st, _ = step(st, xyz, mask, cfg)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / n
-    # each stage range has a device-side mirror: the span from its first
-    # device operation to its last. One stream runs the operations in
-    # order, so a stage's device time is that of the operations starting
-    # inside its spans (the host ranges miss the kernels launched through
-    # ctypes, which no aten op encloses)
+        per = spans.frame_ms(spans.drain())
+    return {name: [ms.get(name, 0.0) for ms in per] for name in per[0]}
+
+
+def stage_busy(step, pipeline, cfg, frames, device, batch, staged=True):
+    """A kernel run of ``step`` with frames 1.. under torch.profiler:
+    with ``staged``, each frame a ``spans.frame`` with the device stages
+    on, whose every stage opens a record_function range of its name. Each
+    span's device time: that of the operations starting inside the range's
+    device-side mirror (its first device operation to its last; one stream
+    runs them in order), the device's idle gaps left out, unlike the span
+    itself. The mirror misses the kernels launched through ctypes at a
+    range's edges, which no aten operation encloses, as the stamps are; so
+    every top-level span of every frame must have one. Also the device's
+    busy time per frame and the frame's wall time under the profiler.
+    Returns ({span: ms per frame}, busy ms per frame, wall ms per frame,
+    operations per frame, {device operation: ms per frame}); the stamps are
+    left out of the operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from aloam_tpu_torch import spans
+    n = len(frames) - 1
+    st = pipeline.init_state(cfg, batch, device)
+    st, _ = step(st, *frames[0], cfg)
+    torch.cuda.synchronize()
+    with spans.tracing(host=False, device=staged), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, (xyz, mask) in enumerate(frames[1:]):
+            with spans.frame(device, i):
+                st, _ = step(st, xyz, mask, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    recs = [r for r in spans.drain() if r["clock"] == "device"]
+    names = {r["name"] for r in recs}
     cuda = torch.autograd.DeviceType.CUDA
-    spans = {label: [] for label in stages}
+    ranges = {name: [] for name in names}
     ops = []                                   # (start, duration, name)
     for ev in prof.events():
         if ev.device_type != cuda:
             continue
-        if ev.name in stages:
-            spans[ev.name].append((ev.time_range.start, ev.time_range.end))
-        else:
+        if ev.name in names:
+            ranges[ev.name].append((ev.time_range.start, ev.time_range.end))
+        elif "aloam_stamp" not in ev.name:
             ops.append((ev.time_range.start, ev.time_range.elapsed_us(),
                         ev.name))
+    for name in {r["name"] for r in recs if r["parent"] is None}:
+        want = sum(r["name"] == name for r in recs)
+        if len(ranges[name]) != want:
+            fail(f"stage_busy: {len(ranges[name])} device ranges of "
+                 f"{name} under the profiler for {want} spans")
     ops.sort()
     starts = [o[0] for o in ops]
     before = np.concatenate([[0.0], np.cumsum([o[1] for o in ops])])
-    per_stage = {label: sum(before[bisect.bisect_left(starts, e)]
-                            - before[bisect.bisect_left(starts, s)]
-                            for s, e in spans[label]) / 1e3 / n
-                 for label in stages}
+    per_stage = {name: sum(before[bisect.bisect_left(starts, e)]
+                           - before[bisect.bisect_left(starts, s)]
+                           for s, e in ranges[name]) / 1e3 / n
+                 for name in dict.fromkeys(r["name"] for r in recs)}
     per_op = {}
     for _, dur, name in ops:
         per_op[name] = per_op.get(name, 0.0) + dur / 1e3 / n
     return per_stage, before[-1] / 1e3 / n, wall, len(ops) / n, per_op
 
 
-def say_busy(tag, stages, pipeline, cfg, frames, device, batch, card):
-    """Print the profiled device busy time by stage and by operation;
+def say_busy(tag, pipeline, cfg, frames, device, batch, card):
+    """Print the profiled device busy time by span and by operation;
     returns the busy ms per frame."""
     per_stage, busy, wall, kernels, per_op = stage_busy(
-        pipeline.step_b if batch > 1 else pipeline.step, stages, pipeline,
-        cfg, frames, device, batch)
+        pipeline.step_b if batch > 1 else pipeline.step, pipeline, cfg,
+        frames, device, batch)
     top = sorted(per_op.items(), key=lambda kv: -kv[1])[:10]
-    say(f"[{tag}] device busy ms per frame by stage, torch.profiler, mean "
+    say(f"[{tag}] device busy ms per frame by span, torch.profiler, mean "
         f"of frames 1-{len(frames) - 1}: "
         + ", ".join(f"{k} {v:.3f}" for k, v in per_stage.items())
         + f"; the device busy {busy:.3f} of {wall:.2f} ms per frame "
         f"(idle {100 * (1 - busy / wall):.1f}%), {kernels:.0f} device "
-        f"operations per frame ({card})")
+        f"operations per frame besides the stamps ({card})")
     say(f"[{tag}] device ms per frame by operation, the ten largest: "
         + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
     return busy
@@ -1431,7 +1441,7 @@ def say_busy(tag, stages, pipeline, cfg, frames, device, batch, card):
 
 def say_stages(tag, per_frame, card):
     med = {label: float(np.median(v[1:])) for label, v in per_frame.items()}
-    say(f"[{tag}] device ms per frame by stage, CUDA events, median of "
+    say(f"[{tag}] device ms per frame by span (spans.stage stamps), median of "
         f"frames 1-{len(next(iter(per_frame.values()))) - 1}: "
         + ", ".join(f"{k} {v:.3f}" for k, v in med.items()) + f" ({card})")
 
@@ -1533,9 +1543,9 @@ def run_step(pipeline, mods, cfg, frames, gt, device, card):
         f"{B * 1e3 / sp:.1f} scans/s; peak device memory "
         f"{peak / 2 ** 30:.3f} GiB (B={B}, {card})")
 
-    say_stages("step", stage_times(pipeline.step_b, STAGES, pipeline, cfg,
-                                   frames, device, B), card)
-    busy = say_busy("step", STAGES, pipeline, cfg, frames, device, B, card)
+    say_stages("step", stage_times(pipeline.step_b, pipeline, cfg, frames,
+                                   device, B), card)
+    busy = say_busy("step", pipeline, cfg, frames, device, B, card)
 
     col = {n: i for i, n in enumerate(METRIC_NAMES)}
     last = k_outs[-1]["metrics"]
@@ -1562,9 +1572,9 @@ def run_single(pipeline, mods, cfg, frames, gt, device, card):
         f"{1e3 / sp:.1f} scans/s; peak device memory "
         f"{peak / 2 ** 30:.3f} GiB (one HDL-64 stream, PRESETS['HDL-64'], "
         f"{card})")
-    say_stages("single", stage_times(pipeline.step, SINGLE_STAGES, pipeline,
-                                     cfg, frames, device, 1), card)
-    say_busy("single", SINGLE_STAGES, pipeline, cfg, frames, device, 1, card)
+    say_stages("single", stage_times(pipeline.step, pipeline, cfg, frames,
+                                     device, 1), card)
+    say_busy("single", pipeline, cfg, frames, device, 1, card)
     last = dict(zip(METRIC_NAMES, k_outs[-1]["metrics"].tolist()))
     say("[single] last-frame metrics: " + json.dumps(last))
     if last["map_solved"] != 1:
@@ -1733,15 +1743,13 @@ def run_distortion(pipeline, mods, cfg_b, cfg_1, device, results, card):
         f"({time.perf_counter() - t0:.1f} s)")
     check_distorted_kernel(pipeline, mods, dcfg_b, frames, dcfg_1, single,
                            device, results, card)
-    stages_b = {**STAGES, **DIST_ODOM_STAGES}
-    stages_1 = {**SINGLE_STAGES, **DIST_ODOM_STAGES}
     launches = {}
-    for tag, step, cfg, cfg_rigid, data, truth, batch, names, stages, \
+    for tag, step, cfg, cfg_rigid, data, truth, batch, names, \
             ate_limit in (
                 ("dist_step", pipeline.step_b, dcfg_b, cfg_b, frames, gt, B,
-                 DIST_KERNELS, stages_b, DIST_ATE_LIMIT_B),
+                 DIST_KERNELS, DIST_ATE_LIMIT_B),
                 ("dist_single", pipeline.step, dcfg_1, cfg_1, single, sgt,
-                 1, DIST_SINGLE_KERNELS, stages_1, DIST_ATE_LIMIT_1)):
+                 1, DIST_SINGLE_KERNELS, DIST_ATE_LIMIT_1)):
         k_outs, k_ms, p_outs, p_ms, got, st, peak = kernel_and_plain(
             tag, step, pipeline, mods, names, cfg, data, device, batch)
         del st            # its map tables must not count in the next peak
@@ -1755,9 +1763,10 @@ def run_distortion(pipeline, mods, cfg_b, cfg_1, device, results, card):
             f"{batch * 1e3 / sp:.1f} scans/s; lm_fused_s launches "
             f"{got['lm_fused_s'] / len(data):g} a frame; peak device memory "
             f"{peak / 2 ** 30:.3f} GiB (B={batch}, {card})")
-        say_stages(tag, stage_times(step, stages, pipeline, cfg, data,
-                                    device, batch), card)
-        say_busy(tag, stages, pipeline, cfg, data, device, batch, card)
+        # odom.assoc / odom.handoff / odom.lm hold the slerp transforms
+        say_stages(tag, stage_times(step, pipeline, cfg, data, device,
+                                    batch), card)
+        say_busy(tag, pipeline, cfg, data, device, batch, card)
         r_outs = run_frames(step, pipeline, cfg_rigid, data, device,
                             batch)[0]
         distortion_gates(tag, k_outs, r_outs, truth, batch, ate_limit)
@@ -2097,8 +2106,8 @@ def parallel_worker(tmp: str) -> None:
                              f"frame {fr} ({k})")
         dist.barrier()
         _, busy, wall, ops, _ = stage_busy(
-            lambda s, x, m, c: f(s, x, m), {}, pipeline, cfg, frames, device,
-            local)
+            lambda s, x, m, c: f(s, x, m), pipeline, cfg, frames, device,
+            local, staged=False)
         dist.barrier()
         # rank 0: the kernels at the inputs frame 1 of the sharded step
         # gives them, against their plain versions and a second launch
@@ -3111,6 +3120,7 @@ def main() -> None:
     check_adversarial_lm(mods, device, results, card)
     check_adversarial_select(mods, device, card)
     check_adversarial_merge(mods, device, card)
+    check_stamp(device, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
     launches, st_b, outs_b, ms_b, busy_b = run_step(pipeline, mods, cfg, frames, gt,
                                             device, card)

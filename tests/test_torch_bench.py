@@ -39,8 +39,7 @@ def _oom(batch):
 def bench_mod(monkeypatch):
     """The port's bench with BENCH_BATCH 32 and a faked one-stream run."""
     monkeypatch.setenv("BENCH_BATCH", "32")
-    for knob in ("BENCH_STAGES", "BENCH_PRESET_RUNG", "BENCH_BATCH_FRAMES",
-                 "BENCH_FRAMES"):
+    for knob in ("BENCH_PRESET_RUNG", "BENCH_BATCH_FRAMES", "BENCH_FRAMES"):
         monkeypatch.delenv(knob, raising=False)
     monkeypatch.setattr(pb, "bench_single",
                         lambda cfg, n, device: (0.08, 0.02))

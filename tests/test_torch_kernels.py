@@ -704,7 +704,7 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     names = [s.name for s in _build.sources()]
     assert names == sorted(["assoc.cu", "errors.cu", "insert.cu", "knn.cu",
                             "lm.cu", "odom_window.cu", "seg_scan.cu",
-                            "select.cu"])
+                            "select.cu", "stamp.cu"])
     before = _build.library_path()
     assert before == _build.library_path()
     with open(csrc / "lm.cu", "a") as fh:

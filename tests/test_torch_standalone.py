@@ -178,14 +178,17 @@ def _flags(parser):
 
 def test_cli_parser_has_jax_flags_plus_device():
     """The port's parser: every flag of JAX's with the same option
-    strings, default, choices, action and type, plus --device (cuda)."""
+    strings, default, choices, action and type, plus --device (cuda) and
+    --trace (off)."""
     mine, theirs = _flags(cli.build_parser()), _flags(jcli.build_parser())
-    assert set(mine) == set(theirs) | {"device"}
+    assert set(mine) == set(theirs) | {"device", "trace"}
     for dest, spec in theirs.items():
         assert mine[dest] == spec, dest
     assert mine["device"][:2] == (("--device",), "cuda")
+    assert mine["trace"][:2] == (("--trace",), False)
     argv = ["--preset", "VLP-16", "--synthetic", "--frames", "3",
             "--skip-first", "1", "--out", "x"]
     a = vars(cli.build_parser().parse_args(argv))
     assert a.pop("device") == "cuda"
+    assert a.pop("trace") is False
     assert a == vars(jcli.build_parser().parse_args(argv))
