@@ -18,10 +18,10 @@ import torch
 
 from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.frontend.voxel import voxel_downsample_rings
+from aloam_tpu_torch.ops import gather as gather_op
 from aloam_tpu_torch.ops import select as select_op
 from aloam_tpu_torch.types import PointCloud, RingCloud, ScanFeatures
-from aloam_tpu_torch.utils.batch import (add_stream_axis, bgather,
-                                         drop_stream_axis)
+from aloam_tpu_torch.utils.batch import add_stream_axis, drop_stream_axis
 
 
 def _region_bounds(cnt: torch.Tensor, n_regions: int):
@@ -78,7 +78,7 @@ def _dyn_rows(vals: torch.Tensor, starts: torch.Tensor, cap: int):
     padded = torch.nn.functional.pad(vals, (0, 0, 0, cap))
     src = starts.to(torch.int64).clamp_max(n)[:, None] \
         + torch.arange(cap, device=vals.device)
-    return bgather(padded, src)
+    return gather_op.bgather(padded, src)
 
 
 def extract_features_b(rc: RingCloud, curv: torch.Tensor,
@@ -103,7 +103,8 @@ def extract_features_b(rc: RingCloud, curv: torch.Tensor,
                       torch.where(label == 1, 1,
                                   torch.where(label == -1, 2, 3)))
     _, order = torch.sort(cls, dim=1, stable=True)
-    sorted_f = bgather(torch.cat([xs, ins[..., None]], dim=-1), order)
+    sorted_f = gather_op.bgather(torch.cat([xs, ins[..., None]], dim=-1),
+                                 order)
     n2 = (label == 2).sum(dim=1)
     n1 = (label == 1).sum(dim=1)
     nm1 = (label == -1).sum(dim=1)

@@ -19,9 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from aloam_tpu_torch.config import AloamConfig
+from aloam_tpu_torch.ops import gather as gather_op
 from aloam_tpu_torch.types import RingCloud
-from aloam_tpu_torch.utils.batch import (add_stream_axis, bgather,
-                                         drop_stream_axis)
+from aloam_tpu_torch.utils.batch import add_stream_axis, drop_stream_axis
 
 _TWO_PI = 2.0 * math.pi
 
@@ -97,7 +97,8 @@ def bucket_rings_b(xyz: torch.Tensor, intensity: torch.Tensor,
     bsz, n = ring.shape
     ring_v = torch.where(valid, ring, scan_lines)
     ring_s, order = torch.sort(ring_v, dim=1, stable=True)
-    fused = bgather(torch.cat([xyz, intensity[..., None]], dim=-1), order)
+    fused = gather_op.bgather(
+        torch.cat([xyz, intensity[..., None]], dim=-1), order)
 
     rids = torch.arange(scan_lines, dtype=ring_s.dtype,
                         device=ring.device).repeat(bsz, 1)
@@ -106,7 +107,7 @@ def bucket_rings_b(xyz: torch.Tensor, intensity: torch.Tensor,
     slot = torch.arange(ring_cap, device=ring.device)
     src = (starts[..., None] + slot).clamp_max(n - 1)               # (B,R,C)
     occupied = slot < cnt[..., None]
-    grid = bgather(fused, src.reshape(bsz, -1)).reshape(
+    grid = gather_op.bgather(fused, src.reshape(bsz, -1)).reshape(
         bsz, scan_lines, ring_cap, 4)
     grid = torch.where(occupied[..., None], grid, 0.0)
     cnt = cnt.clamp_max(ring_cap).to(torch.int32)

@@ -32,9 +32,9 @@ from aloam_tpu_torch import geometry as geo
 from aloam_tpu_torch import solver, spans
 from aloam_tpu_torch.config import AloamConfig
 from aloam_tpu_torch.neighbors import odom_window_mins_b
+from aloam_tpu_torch.ops import gather as gather_op
 from aloam_tpu_torch.types import PointCloud, ScanFeatures
-from aloam_tpu_torch.utils.batch import (add_stream_axis, bgather,
-                                         drop_stream_axis)
+from aloam_tpu_torch.utils.batch import add_stream_axis, drop_stream_axis
 
 
 class OdomState(NamedTuple):
@@ -148,8 +148,10 @@ def edge_correspondences_b(sharp: PointCloud, last: PointCloud, q, t,
         want_same_ring=False, ring_seg=ring_seg)
     valid = sharp.mask & (d2_nn < cfg.dist_sq_threshold) \
         & (d2_diff < cfg.dist_sq_threshold)
-    return solver.EdgeFactors(p=sharp.xyz, a=bgather(last.xyz, nn),
-                              b=bgather(last.xyz, idx2), mask=valid, s=s)
+    return solver.EdgeFactors(p=sharp.xyz,
+                              a=gather_op.bgather(last.xyz, nn),
+                              b=gather_op.bgather(last.xyz, idx2),
+                              mask=valid, s=s)
 
 
 def plane_correspondences_b(flat: PointCloud, last: PointCloud, q, t,
@@ -168,9 +170,9 @@ def plane_correspondences_b(flat: PointCloud, last: PointCloud, q, t,
         want_same_ring=True, ring_seg=ring_seg)
     valid = flat.mask & (d2_nn < cfg.dist_sq_threshold) \
         & (val2 < cfg.dist_sq_threshold) & (val3 < cfg.dist_sq_threshold)
-    a = bgather(last.xyz, nn)
-    n = torch.linalg.cross(a - bgather(last.xyz, idx2),
-                           a - bgather(last.xyz, idx3), dim=-1)
+    a = gather_op.bgather(last.xyz, nn)
+    n = torch.linalg.cross(a - gather_op.bgather(last.xyz, idx2),
+                           a - gather_op.bgather(last.xyz, idx3), dim=-1)
     n_norm = torch.linalg.vector_norm(n, dim=-1, keepdim=True)
     n = n / n_norm.clamp_min(1e-12)
     valid = valid & (n_norm[..., 0] > 1e-6)

@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C signatures: (name, argument types); every function returns int
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     "aloam_seg_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "aloam_select_rings": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -49,6 +50,8 @@ SIGNATURES = {
     "aloam_knn_select": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "aloam_knn_grid": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
     "aloam_stamp": (_P, _I, _P),
+    "aloam_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I,
+                          _P),
 }
 
 

@@ -43,10 +43,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from aloam_tpu_torch.ops import gather as gather_op
 from aloam_tpu_torch.ops import insert as insert_op
 from aloam_tpu_torch.ops import knn as knn_op
 from aloam_tpu_torch.ops.linalg3 import true_div
-from aloam_tpu_torch.utils.batch import bgather, drop_stream_axis
+from aloam_tpu_torch.utils.batch import drop_stream_axis
 
 _P1, _P2, _P3 = 73856093, 19349663, 83492791  # spatial-hash primes
 _EMPTY = 32767                                 # cell-coordinate sentinel
@@ -119,7 +120,7 @@ def _owned_rows(table: torch.Tensor, rows: torch.Tensor,
     h = table.shape[1]
     lo = shard.index * h
     own = (rows >= lo) & (rows < lo + h)
-    got = bgather(table, torch.where(own, rows - lo, 0))
+    got = gather_op.bgather(table, torch.where(own, rows - lo, 0))
     got.masked_fill_(~own[..., None], 0)
     return _group_sum(got.view(torch.int32), shard).view(table.dtype)
 
@@ -342,7 +343,7 @@ def knn_cache_b(grid: GridMap, query: torch.Tensor, cell_size: float,
 
     # --- per-cell candidate blocks (the deduplicated gather) --------------
     hh, dup = _block(slot_cell, table_size)                  # (B, C+P, 8)
-    cand = bgather(grid.pts, hh) if shard is None \
+    cand = gather_op.bgather(grid.pts, hh) if shard is None \
         else _owned_rows(grid.pts, hh, shard)                # (B,C+P,8,3Bk)
     # a bucket that two block cells share is read once: the later copy is
     # poisoned at the _FAR sentinel

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from aloam_tpu_torch.ops import _build
-from aloam_tpu_torch.utils.batch import bgather
+from aloam_tpu_torch.ops import gather as gather_op
 
 launches = 0  # kernel launches since the last reset
 
@@ -140,8 +140,8 @@ def merge_rows_plain(pts_table, aux_table, slot_h, cnt, ppx, ppy, ppz, ppi,
     bsz, cap_c = cnt.shape
     table_size = pts_table.shape[1]
     bk = aux_table.shape[-1] // 5
-    pts_tile = bgather(pts_table, slot_h)                    # (B, C, 3Bk)
-    av = bgather(aux_table, slot_h).view(bsz, cap_c, 5, bk)
+    pts_tile = gather_op.bgather(pts_table, slot_h)          # (B, C, 3Bk)
+    av = gather_op.bgather(aux_table, slot_h).view(bsz, cap_c, 5, bk)
     s_int = av[:, :, 0].contiguous().view(torch.float32)
     cell_tile = av[:, :, 1:4].reshape(bsz, cap_c, 3 * bk)
     vox_tile = av[:, :, 4].contiguous()

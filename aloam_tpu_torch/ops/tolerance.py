@@ -24,7 +24,9 @@ One definition, read by ``chip_smoke.py`` and by the bench's kernel check
                          exact (no arithmetic but the midpoint and the
                          priority formula, identical);
   knn_select(_rows)      d2 and neighbours exact (the same rounded
-                         operations in the same order, lowest-index ties).
+                         operations in the same order, lowest-index ties);
+  bgather                every output bit equal (a copy: NaN payloads and
+                         -0.0 included).
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ def agree(name: str, got, want, kind: str | None = None, inputs=None):
     "corner"; ``inputs`` the kernel's arguments, which the seg scan's
     bound reads (its values and heads). Tuples of outputs are compared
     element by element."""
+    if name == "bgather":
+        same = got.shape == want.shape and got.dtype == want.dtype \
+            and torch.equal(got.contiguous().view(torch.uint8),
+                            want.contiguous().view(torch.uint8))
+        return same, 0.0 if same else float("inf")
     if name == "select_rings":
         return torch.equal(got, want), absdiff(got, want).max().item()
     if name == "segmented_prefix_sums":

@@ -1,6 +1,7 @@
 """Batched row helpers (port of ``aloam_tpu/utils/batch.py``): gathers and
 compactions over a leading stream axis B, each one flat operation over
-the B·N rows with per-stream offsets (``boffsets``)."""
+the B·N rows with per-stream offsets (``boffsets``). The row gather,
+``bgather``, is ``ops/gather.py``'s."""
 
 from __future__ import annotations
 
@@ -14,17 +15,6 @@ def boffsets(b: int, n: int, idx_ndim: int, device=None) -> torch.Tensor:
     against a (B, ...) index of ``idx_ndim`` dims."""
     return (torch.arange(b, dtype=torch.int32, device=device) * n).reshape(
         (b,) + (1,) * (idx_ndim - 1))
-
-
-def bgather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x: (B, N, ...); idx: (B, ...) integer in [0, N). Returns
-    (B, *idx.shape[1:], *x.shape[2:])."""
-    b, n = x.shape[0], x.shape[1]
-    flat = x.reshape((b * n,) + tuple(x.shape[2:]))
-    off = torch.arange(b, device=idx.device, dtype=torch.int64) * n
-    gidx = idx.to(torch.int64) + off.reshape((b,) + (1,) * (idx.dim() - 1))
-    return flat[gidx.reshape(-1)].reshape(tuple(idx.shape)
-                                          + tuple(x.shape[2:]))
 
 
 def _scatter_rows(values: torch.Tensor, dest: torch.Tensor, rows: int):

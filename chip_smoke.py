@@ -11,21 +11,24 @@ of JAX or of the JAX package. Phases, each printing its own lines:
 
 1. device: the card's name and power limit (from nvidia-smi), torch and
    CUDA versions; TF32 off;
-2. build: the seven CUDA kernels from ``aloam_tpu_torch/csrc/`` (one nvcc
-   per source, sm_90a);
+2. build: the CUDA kernels from ``aloam_tpu_torch/csrc/`` (one nvcc per
+   source, sm_90a);
 3. data: B = 16 synthetic HDL-64 streams of 8 frames (the bench's seeds
    and speeds), padded to the bench config (``bench.batched_bench_cfg``:
    ring_cap 1856, n_raw 115200, less_flat_cap 36864, assoc_cspan 128,
    map_query_chunk 2048), and the single-stream bench scene (seed 42,
    10 m/s, padded to ``PRESETS["HDL-64"]``), cached under
    ``.bench_cache/``;
-4. kernels: each of step_b's six kernels against its plain PyTorch
-   version on the card, on every distinct input shape the main path gave
+4. kernels: each of step_b's seven kernels (the six that replace a
+   ``pallas_call`` and the row gather, ``bgather``) against its plain
+   PyTorch version on the card, on every distinct input shape the main path gave
    it in frame 1 of ``step_b``, with the stated tolerance, both timed
    with CUDA events (the kernel back to back, its wrapper's host cost
    included, and queued behind a sleep for its device time alone),
    beside the kernel's bound (the least time the card could take for the
-   same work, from the bytes and the operations these inputs need); then
+   same work, from the bytes and the operations these inputs need; the
+   row gather also beside the library's ``flat[gidx]``, ``library_ms``);
+   then
    ``window_mins`` and ``segmented_prefix_sums`` on adversarial inputs
    (an all-poisoned reference, duplicate points, queries on the first
    and last rings, with and without ``ring_seg``;
@@ -47,25 +50,31 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    the cap; (Bk, P) (32, 16), (48, 16), (48, 48), (128, 128)); the
    stamp of the port's spans (``aloam_stamp``) alone, eager and in a CUDA
    graph: stamps rise with their slot and, on the host clock, lie between
-   host readings around the launches (``check_stamp``). A kernel
+   host readings around the launches (``check_stamp``); the row gather
+   (``ops/gather.bgather``, ``csrc/gather.cu``) bit-equal to
+   ``flat[gidx]`` at the ``hdl64-fleet-b32`` frame's five gather shapes
+   and on small cases, timed beside its byte bound and the library's
+   indexing, and an index past either end of a stream's rows ending a
+   child process with a CUDA error (``check_gather``). A kernel
    that updates the tables in place gets a fresh clone of them for every
    call, timed calls included;
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
-   kernels (its four launch counters must rise, and every odometry search
+   kernels (its five launch counters must rise, and every odometry search
    must declare ``ring_seg`` > 0) and with the plain versions; per-frame
    odometry poses must agree;
-6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its six
+6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its seven
    launch counters must rise, ``ring_seg`` > 0 as in phase 5) and with
    the plain versions; map poses must agree (tightly unless a gate
    flipped); a third kernel run reads each stage's device span from the
    port's spans (``spans.stage``: ``%globaltimer`` stamps), a fourth under
    torch.profiler gives each span's device busy time (the operations
    inside the record_function range each stage opens under a profiler)
-   and the device's idle share;
-   scans/s, peak device
+   and the device's idle share; in the kernel run ``gather.launches``
+   must equal the ``bgather`` calls that moved rows (phases 5, 8 and 10
+   the same); scans/s, peak device
    memory and the odometry and mapped ATE against the ground truth (must
    be < 0.5 m);
-7. single-stream kernels: each of the single-stream step's six kernels
+7. single-stream kernels: each of the single-stream step's seven kernels
    against its plain version, timed and bounded as in phase 4, at the
    inputs frame 1 of the single-stream step gave them (``knn_select``:
    the table entry, ``ops/knn.knn_grid``, which ``gridmap.knn`` calls),
@@ -77,7 +86,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    candidates, equal distances, negative coordinates, queries on cell
    boundaries, ±1e5 m, Q = 1 and 1001; Bk 32 and 48);
 8. single: ``pipeline.step`` over the single-stream scene's 8 frames at
-   ``PRESETS["HDL-64"]`` with the kernels (its six launch counters, the
+   ``PRESETS["HDL-64"]`` with the kernels (its seven launch counters, the
    table entry's among them, must rise; ``ring_seg`` > 0) and with the
    plain versions;
    map poses as in phase 6; ms/scan, peak device memory, a staged kernel
@@ -111,7 +120,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
 11. parallel: ``aloam_tpu_torch.parallel`` over ``torch.distributed``.
    (a) One NCCL rank, a (1, 1) mesh, through the compiled entry points:
    ``batched_step_fn`` over phase 6's 16 streams and 8 frames, captured
-   once (its body launching each of step_b's six kernels as one eager
+   once (its body launching each of step_b's seven kernels as one eager
    frame does) and replayed 8 times, every output of every frame and the
    final tables bit-equal to phase 6's eager kernel run; ``step_b`` with
    the rank's ``TableShard`` of the NCCL group of one through a
@@ -132,7 +141,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    as a (1, 2) mesh, each holding half of every table of phase 6's 16
    streams (the partition assert of ``parallel.dryrun.check_partition``
    before and after), step the 8 frames with the kernels (launch counters
-   from 0, each of step_b's six must rise); both ranks' poses and
+   from 0, each of step_b's seven must rise); both ranks' poses and
    metrics equal each other and phase 6's bit for bit, and rank 0 steps
    the same frames with the whole tables (``pipeline.step_b``): the
    tables gathered by ``gather_tables`` equal them bit for bit. Rank 0's
@@ -153,7 +162,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    (b) ``parallel.batched_step_jit`` over phase 6's 16 streams and 8
    frames: the outputs of every frame, kept on the card until the end,
    and the final tables bit-equal to phase 6's eager kernel run; one
-   capture, whose body launched each of step_b's six kernels as often as
+   capture, whose body launched each of step_b's seven kernels as often as
    one eager frame does, and 8 replays. (c) ``pipeline.make_step_fn`` over
    phase 8's frames, bit-equal to phase 8, then 4 frames at
    ``mapping_skip_frame`` 2 (two graphs, one a gate branch) bit-equal to
@@ -169,7 +178,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    time is printed;
 13. bench: first the bench's preset rung in this process, ``step_b`` at
    ``PRESETS["HDL-64"]``'s caps over phase 3's streams, its launches
-   counted from 0 (all six kernels must launch), its kernels held against
+   counted from 0 (all seven kernels must launch), its kernels held against
    their plain versions at its frame-1 inputs as in phase 4, and its ATE
    as in phase 6; then ``python -m aloam_tpu_torch.pregen_streams`` and
    ``python -m aloam_tpu_torch.bench`` as child processes, each with a
@@ -190,7 +199,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    ``batched_step_jit`` over frames 0-19 bit-equal to the eager ``step``
    and ``step_b``; (d) ``make_step_fn`` and (e) ``batched_step_jit`` at
    B = 1 over all 500 frames, each path's launch counters set to 0 just
-   before and read just after (each of its six must rise), held to
+   before and read just after (each of its seven must rise), held to
    tests/test_long_drift.py's gates (``drift.gates``: map_solved >= 495,
    drift < 3 %, ATE < 10 m, every pose finite, the first 200 frames'
    drift within 1.25 x the f64 oracle's, or 1.25 x JAX's own ratio where
@@ -206,7 +215,9 @@ launches on the main path, worst error, kernel ms back to back, device
 ms, plain and bound ms at its largest input; ``knn_select_rows``'s
 launches are the association call's of phase 7, ``lm_fused_s``'s the
 distorted ``step_b``'s of phase 10; ``launches_by_path`` those of phase
-13's preset rung and of the bench's runs, and of phase 14's two paths);
+13's preset rung and of the bench's runs, and of phase 14's two paths;
+the row gather, ``bgather``, replaces no ``pallas_call`` and is the one
+with a ``library_ms``, the library's indexing at the same input);
 the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line; so does a machine without a CUDA card.
@@ -320,6 +331,10 @@ KERNELS = {
     "lm_fused_s": ("lm", "lm_fused", "lm_fused_plain",
                    "aloam_tpu_torch/csrc/lm.cu",
                    "aloam_tpu/ops/pallas_lm.py:326"),
+    # the row gather of every caller (utils/batch.py:bgather in the JAX
+    # package, which leaves it to XLA: it replaces no pallas_call)
+    "bgather": ("gather", "bgather", "bgather_plain",
+                "aloam_tpu_torch/csrc/gather.cu", None),
 }
 # each wrapper's launch counter, where it is not the module's `launches`
 COUNTERS = {"knn_select": "grid_launches", "lm_fused_s": "s_launches"}
@@ -327,7 +342,7 @@ COUNTERS = {"knn_select": "grid_launches", "lm_fused_s": "s_launches"}
 IN_PLACE = {"merge_tiles": 2}
 # the kernels each path runs
 FRONT_KERNELS = ("select_rings", "segmented_prefix_sums", "window_mins",
-                 "lm_fused")
+                 "lm_fused", "bgather")
 STEP_KERNELS = FRONT_KERNELS + ("assoc_cell", "merge_tiles")
 SINGLE_KERNELS = FRONT_KERNELS + ("merge_tiles", "knn_select")
 DIST_KERNELS = STEP_KERNELS + ("lm_fused_s",)
@@ -565,11 +580,14 @@ def kernel_work(name, args, kw, out):
     rows their queries name, each once, not the whole table or cache: the
     table entry the distinct bucket rows of the queries' blocks (a
     duplicate bucket is read once), the cache entry the distinct rows of
-    its live queries (a gated query reads its row's first candidate)."""
+    its live queries (a gated query reads its row's first candidate). The
+    row gather counts its distinct source rows (``gather_bytes``)."""
     import torch
     nbytes = _nbytes(list(args)) + _nbytes(list(kw.values())) + _nbytes(out)
     flops = 0
-    if name == "knn_select":
+    if name == "bgather":
+        nbytes = gather_bytes(args[0], args[1], out)
+    elif name == "knn_select":
         from aloam_tpu_torch.ops.gridmap import block_buckets
         pts, q, cell, radius = args[0], args[1], args[3], args[4]
         hh, dup = block_buckets(q, pts.shape[0], cell, radius)
@@ -604,6 +622,32 @@ def kernel_work(name, args, kw, out):
     elif name == "assoc_cell":
         flops = 8 * args[2].shape[0] * 8 * (args[0].shape[1] // 24)
     return nbytes, flops
+
+
+def gather_bytes(x, idx, out) -> int:
+    """The least bytes of ``bgather(x, idx)``: each distinct source row
+    read once (a row that several indices name can be served from the
+    cache after its first read), the indices read and the output written
+    once."""
+    import torch
+    b, n = x.shape[:2]
+    off = n * torch.arange(b, device=idx.device).reshape(
+        (b,) + (1,) * (idx.dim() - 1))
+    rows = (idx.long() + off).unique().numel()
+    row = math.prod(x.shape[2:]) * x.element_size()
+    return rows * row + _nbytes([idx, out])
+
+
+def library_gather(x, idx):
+    """A call of the library's advanced indexing that ``bgather``
+    replaces, ``flat[gidx]``, on a flat view and an int64 index built
+    beforehand, so that it times the indexing alone."""
+    import torch
+    b, n = x.shape[:2]
+    flat = x.reshape((b * n,) + tuple(x.shape[2:]))
+    gidx = (idx.long() + n * torch.arange(b, device=idx.device).reshape(
+        (b,) + (1,) * (idx.dim() - 1))).reshape(-1)
+    return lambda: flat[gidx]
 
 
 def bound_of(nbytes: int, flops: int):
@@ -673,19 +717,24 @@ def check_recorded(mods, recorded, results, card):
         device_ms = cuda_ms(fresh_calls(name, kern, args, kw, 21), 20,
                             queued=True)
         plain_ms = cuda_ms(fresh_calls(name, plain, args, kw, 6), 5)
+        library_ms = cuda_ms(library_gather(*args), 20, queued=True) \
+            if name == "bgather" else None
         shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
         size = sum(a.numel() for a in args if torch.is_tensor(a))
+        library = "" if library_ms is None \
+            else f" library flat[gidx] device {library_ms:.4f} ms"
         say(f"[kernel] {name}{extra if extra else ''}: inputs {shapes} "
             f"max_abs_err {err:.3g} kernel {ms:.4f} ms (device "
-            f"{device_ms:.4f}) plain {plain_ms:.4f} ms bound {bound_ms:.4f} "
-            f"ms ({bound_by}: "
+            f"{device_ms:.4f}) plain {plain_ms:.4f} ms{library} bound "
+            f"{bound_ms:.4f} ms ({bound_by}: "
             f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP) ({card})")
         prev = results.get(name)
         if prev is None or size > prev["size"]:
             results[name] = dict(max_abs_err=max(err, prev["max_abs_err"])
                                  if prev else err, ms=ms, device_ms=device_ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, size=size)
+                                 bound_by=bound_by, library_ms=library_ms,
+                                 size=size)
         else:
             prev["max_abs_err"] = max(err, prev["max_abs_err"])
 
@@ -1201,6 +1250,173 @@ def check_stamp(device, card):
         f"nodes ({card})")
 
 
+def gather_shapes(device):
+    """The row gathers of a ``hdl64-fleet-b32`` frame (B = 32, n_raw
+    131072, 64 rings of 2560 slots, benchmark/configs/hdl64.json), with
+    indices of the same pattern as the main path's: (tag, x, idx). The
+    registration's stable ring sort and its ring windows, the features'
+    per-ring class sort over the 2048 rings, odometry's plane search over
+    the strided xyz view of a 4-wide cloud (int32), the knn cache's
+    576-byte surf buckets: as ``gridmap.knn_cache_b`` builds it, the
+    2x2x2 bucket block (``gridmap._block``) of each of map_cell_cap 1024
+    distinct occupied cells in the cache's key order, here a quarter of
+    a 32 x 32 x 4 box of cells a stream, then ASSOC_PAD zero cells, so
+    that neighbouring cells share buckets as on the map."""
+    import torch
+
+    from aloam_tpu_torch.ops.gridmap import ASSOC_PAD, _block
+    g = torch.Generator(device=device)
+    g.manual_seed(18)
+    bsz, n, rings, cap = 32, 131072, 64, 2560
+    fused = torch.randn((bsz, n, 4), device=device, generator=g)
+    ring = torch.randint(0, rings + 1, (bsz, n), device=device, generator=g)
+    order = torch.sort(ring, dim=1, stable=True)[1]
+    starts = torch.sort(torch.randint(0, n, (bsz, rings), device=device,
+                                      generator=g), dim=1)[0]
+    src = (starts[..., None] + torch.arange(cap, device=device)) \
+        .clamp_max(n - 1).reshape(bsz, -1)
+    cls = torch.randint(0, 4, (bsz * rings, cap), device=device, generator=g)
+    by_cls = torch.sort(cls, dim=1, stable=True)[1]
+    last = torch.randn((bsz, 40960, 4), device=device, generator=g)
+    table = torch.randn((bsz, 16384, 3 * 48), device=device, generator=g)
+    box = torch.stack(torch.meshgrid(
+        *(torch.arange(k, device=device) for k in (32, 32, 4)),
+        indexing="ij"), dim=-1).reshape(-1, 3)      # in the cache's order
+    picks = torch.stack([torch.randperm(box.shape[0], device=device,
+                                        generator=g)[:1024].sort()[0]
+                         for _ in range(bsz)])
+    corner = torch.randint(-512, 512, (bsz, 1, 3), device=device,
+                           generator=g)
+    cells = torch.cat([box[picks] + corner, torch.zeros(
+        (bsz, ASSOC_PAD, 3), dtype=box.dtype, device=device)], dim=1)
+    hh, _ = _block(cells.to(torch.int32), table.shape[1])
+    return [("register.fused", fused, order),
+            ("register.grid", fused, src),
+            ("features.sorted_f",
+             torch.randn((bsz * rings, cap, 4), device=device, generator=g),
+             by_cls),
+            ("odometry.plane_xyz", last[..., :3],
+             torch.randint(0, 40960, (bsz, 1536), device=device, generator=g,
+                           dtype=torch.int32)),
+            ("knn_cache.cand", table, hh)]
+
+
+# a child process that gathers row int(argv[1]) of 50 with int32 or
+# int64 indices (argv[2]); it prints "launched" after the launch and
+# "returned" once the card has finished
+GATHER_CHILD = """
+import sys
+import torch
+from aloam_tpu_torch.ops import gather
+x = torch.randn((2, 50, 4), device="cuda")
+idx = torch.zeros((2, 7), dtype=getattr(torch, sys.argv[2]), device="cuda")
+idx[1, 3] = int(sys.argv[1])
+out = gather.bgather(x, idx)
+print("launched", flush=True)
+torch.cuda.synchronize()
+print("returned", flush=True)
+"""
+
+
+def check_gather_range(card):
+    """An index outside [0, N) is a caller's bug that the row gather must
+    not read past its rows for: it traps, which ends the process with a
+    CUDA error. Each case runs in a child process of its own (a trap
+    leaves the CUDA context unusable): row 49 (the last) must return, N
+    (int32) and -1 (int64) must launch and then fail before returning."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for row, dtype, ok in (("49", "int32", True), ("50", "int32", False),
+                           ("-1", "int64", False)):
+        try:
+            r = subprocess.run([sys.executable, "-c", GATHER_CHILD, row,
+                                dtype], cwd=root, capture_output=True,
+                               text=True, timeout=180)
+        except subprocess.TimeoutExpired:
+            fail(f"[gather] index {row} ({dtype}): the child process hung")
+        out = r.stdout.split()
+        if ok and (r.returncode != 0 or "returned" not in out):
+            fail(f"[gather] index {row} ({dtype}): rc {r.returncode}, "
+                 f"{r.stderr[-2000:]}")
+        if not ok and (r.returncode == 0 or "launched" not in out
+                       or "returned" in out):
+            fail(f"[gather] index {row} ({dtype}) of 50 rows did not end "
+                 f"the process after its launch: rc {r.returncode}, "
+                 f"stdout {out}")
+        if not ok:
+            say(f"[gather] index {row} ({dtype}) of 50 rows: the launch "
+                f"trapped, rc {r.returncode}: "
+                f"{r.stderr.strip().splitlines()[-1][:200]} ({card})")
+
+
+def check_gather(device, card):
+    """The row gather (``ops/gather.bgather``, ``csrc/gather.cu``) bit-equal
+    to its plain version, ``flat[gidx]``, at the fleet frame's shapes
+    (``gather_shapes``) and on small cases (B = 1 and 3, int32 and int64,
+    rows of 4 to 960 bytes, strided and unaligned views, an empty index,
+    the last row; rows of one byte raise); each fleet shape timed back to
+    back and queued beside its byte bound (``gather_bytes``: each
+    distinct row read once, the indices read and the output written once)
+    and the library's advanced indexing alone on a prebuilt int64 index
+    (``library_ms``); then the out-of-range trap
+    (``check_gather_range``)."""
+    import torch
+
+    from aloam_tpu_torch.ops import gather
+
+    def same(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype \
+            and a.is_contiguous() and torch.equal(
+                a.reshape(-1).view(torch.uint8),
+                b.contiguous().reshape(-1).view(torch.uint8))
+
+    g = torch.Generator(device=device)
+    g.manual_seed(180)
+    small = []
+    for bsz in (1, 3):
+        cloud = torch.randn((bsz, 50, 4), device=device, generator=g)
+        for dt in (torch.int32, torch.int64):
+            idx = torch.randint(0, 50, (bsz, 7, 3), device=device,
+                                generator=g, dtype=dt)
+            small += [(cloud[..., :3], idx), (cloud[..., 1:], idx),
+                      (cloud[:, ::2], idx % 25), (cloud, idx[:, :0]),
+                      (cloud, torch.full_like(idx, 49)),
+                      (cloud.transpose(1, 2), idx % 4),
+                      (cloud.double(), idx)]
+            small += [(torch.randn((bsz, 50) + row, device=device,
+                                   generator=g), idx)
+                      for row in ((3,), (4,), (8, 18), (240,))]
+    try:
+        gather.bgather(cloud[..., 0] > 0, idx)
+    except ValueError:
+        pass
+    else:
+        fail("[gather] rows of one byte did not raise")
+    for x, idx in small:
+        if not same(gather.bgather(x, idx), gather.bgather_plain(x, idx)):
+            fail(f"[gather] x {tuple(x.shape)} {x.dtype} strides "
+                 f"{x.stride()}, idx {tuple(idx.shape)} {idx.dtype}: not "
+                 f"bit-equal to flat[gidx]")
+    for tag, x, idx in gather_shapes(device):
+        got = gather.bgather(x, idx)
+        if not same(got, gather.bgather_plain(x, idx)):
+            fail(f"[gather] {tag}: not bit-equal to flat[gidx]")
+        nbytes = gather_bytes(x, idx, got)
+        bound_ms, bound_by = bound_of(nbytes, 0)
+        ms = cuda_ms(lambda: gather.bgather(x, idx), 20)
+        device_ms = cuda_ms(lambda: gather.bgather(x, idx), 20, queued=True)
+        library_ms = cuda_ms(library_gather(x, idx), 20, queued=True)
+        plain_ms = cuda_ms(lambda: gather.bgather_plain(x, idx), 5)
+        row = got.numel() // idx.numel() * got.element_size()
+        say(f"[gather] {tag}: x {tuple(x.shape)} strides {x.stride()}, idx "
+            f"{tuple(idx.shape)} {idx.dtype}, {row}-byte rows bit-equal; "
+            f"kernel {ms:.4f} ms (device {device_ms:.4f}) library "
+            f"flat[gidx] device {library_ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+            f"each distinct row once) ({card})")
+    say(f"[gather] {len(small)} small cases bit-equal ({card})")
+    check_gather_range(card)
+
+
 def check_insert_twin(mods, device, card):
     """Phase 4, sixth part, last: the single-stream ``gridmap.insert`` at
     JAX's default caps on a table of Bk 48 (the preset's surf buckets),
@@ -1503,14 +1719,21 @@ def ate_check(tag, k_outs, gt, batch):
 def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
                      batch):
     """``step`` over the frames with the kernels (every kernel in
-    ``names`` must launch) and with every kernel's plain version (none may
+    ``names`` must launch, and the row gather once for every ``bgather``
+    call that moved rows) and with every kernel's plain version (none may
     launch). Returns (kernel outputs, kernel ms, plain outputs, plain ms,
     launches, final kernel-run state, the kernel run's peak device memory
     in bytes)."""
     import torch
+    gather, moved = mods["bgather"], [0]
+
+    def counted(x, idx, bgather=gather.bgather):
+        out = bgather(x, idx)
+        moved[0] += out.numel() > 0
+        return out
     reset_counts(mods)
     torch.cuda.reset_peak_memory_stats(device)
-    with ring_seg_spy(mods, tag):
+    with ring_seg_spy(mods, tag), Patched([(gather, "bgather", counted)]):
         k_outs, k_ms, st = run_frames(step, pipeline, cfg, frames, device,
                                       batch)
     peak = torch.cuda.max_memory_allocated(device)
@@ -1518,6 +1741,11 @@ def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
     say(f"[{tag}] kernel launches over {len(frames)} frames: {launches}")
     if min(launches[n] for n in names) < 1:
         fail(f"a kernel of the {tag} path was never launched: {launches}")
+    if launches["bgather"] != moved[0]:
+        fail(f"[{tag}] the row gather launched {launches['bgather']} "
+             f"times for {moved[0]} bgather calls that moved rows")
+    say(f"[{tag}] the row gather: {launches['bgather'] / len(frames):g} "
+        f"launches a frame, one for each bgather call that moved rows")
     with Patched([(mods[n], spec[1], getattr(mods[n], spec[2]))
                   for n, spec in KERNELS.items()]):
         p_outs, p_ms, _ = run_frames(step, pipeline, cfg, frames, device,
@@ -2852,7 +3080,7 @@ def check_preset_rung(pipeline, mods, cfg, frames, gt, device, results,
     ``step_b`` at ``PRESETS["HDL-64"]``'s caps (the bench's
     map_query_chunk) over phase 3's B = 16 streams, padded to the preset's
     n_raw. Its launches are counted from 0 over the frames (each of
-    step_b's six kernels must launch), its kernels held against their
+    step_b's seven kernels must launch), its kernels held against their
     plain versions at the inputs its frame 1 gives them, as phase 4 holds
     them at the bench config, and its ATE as phase 6's. Returns the
     launches."""
@@ -3121,6 +3349,7 @@ def main() -> None:
     check_adversarial_select(mods, device, card)
     check_adversarial_merge(mods, device, card)
     check_stamp(device, card)
+    check_gather(device, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
     launches, st_b, outs_b, ms_b, busy_b = run_step(pipeline, mods, cfg, frames, gt,
                                             device, card)
@@ -3178,8 +3407,9 @@ def main() -> None:
                     plain_ms=results[name]["plain_ms"],
                     bound_ms=results[name]["bound_ms"],
                     bound_by=results[name]["bound_by"],
-                    # no one PyTorch call computes any of these functions
-                    library_ms=None,
+                    # the library's flat[gidx] for the row gather; no one
+                    # PyTorch call computes any of the other functions
+                    library_ms=results[name].get("library_ms"),
                     launches_by_path={p: n.get(name, 0)
                                       for p, n in by_path.items()})
                for name, spec in KERNELS.items()]

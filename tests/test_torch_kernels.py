@@ -34,13 +34,13 @@ from aloam_tpu_torch.frontend import features
 from aloam_tpu_torch.frontend.voxel import _voxel_core
 from aloam_tpu_torch.neighbors import odom_window_mins_b
 from aloam_tpu_torch.ops import assoc as assoc_op
+from aloam_tpu_torch.ops import gather as gather_op
 from aloam_tpu_torch.ops import insert as insert_op
 from aloam_tpu_torch.ops import knn as knn_op
 from aloam_tpu_torch.ops import lm as lm_op
 from aloam_tpu_torch.ops import odom as odom_op
 from aloam_tpu_torch.ops import select as select_op
 from aloam_tpu_torch.ops import voxel as seg_op
-from aloam_tpu_torch.utils.batch import bgather
 from _torch_scenes import (SELECT_CASES, queries_near, segmented_reference,
                            select_case)
 
@@ -621,11 +621,79 @@ def test_geometry_matches_jax(rng):
                                    rtol=1e-6)
 
 
-def test_bgather_matches_jax(rng):
-    x = rng.normal(size=(3, 50, 4)).astype(np.float32)
-    idx = rng.integers(0, 50, size=(3, 7, 2)).astype(np.int32)
-    np.testing.assert_array_equal(bgather(_t(x), _t(idx)).numpy(),
-                                  np.asarray(j_bgather(x, idx)))
+# (row shape, as a view of a 4-wide cloud's [..., :3]): 12, 16, 576 and
+# 960 bytes of f32, the strided xyz view of odometry's gathers
+BGATHER_ROWS = [((3,), False), ((4,), False), ((8, 18), False),
+                ((240,), False), ((3,), True)]
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("row, view", BGATHER_ROWS)
+def test_bgather_matches_jax(rng, row, view, idx_dtype, bsz):
+    """bgather (the plain version on the CPU) against JAX's, bit for bit,
+    at every row width and index type its callers give it; the plain
+    version called by name agrees."""
+    n = 50
+    x = rng.normal(size=(bsz, n) + ((4,) if view else row)).astype(
+        np.float32)
+    xt = _t(x)
+    if view:
+        x, xt = x[..., :3], xt[..., :3]
+    idx = rng.integers(0, n, size=(bsz, 7, 2)).astype(idx_dtype)
+    got = gather_op.bgather(xt, _t(idx))
+    want = np.asarray(j_bgather(x, idx.astype(np.int32)))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        gather_op.bgather_plain(xt, _t(idx)).numpy(), want)
+
+
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_bgather_empty_index_matches_jax(rng, bsz):
+    x = rng.normal(size=(bsz, 50, 4)).astype(np.float32)
+    idx = np.zeros((bsz, 0), np.int32)
+    got = gather_op.bgather(_t(x), _t(idx))
+    want = np.asarray(j_bgather(x, idx))
+    assert got.shape == want.shape == (bsz, 0, 4)
+
+
+@pytest.mark.parametrize("row_bytes, offsets, width", [
+    (16, (0, 256, 16, 64), 16), (12, (0, 256, 16, 64), 4),
+    (576, (0, 256, 576, 0), 16), (960, (0, 512, 0, 960), 16),
+    (16, (8, 256, 16, 0), 8), (16, (0, 256, 20, 0), 4),
+    (6, (0, 256, 6, 0), None), (12, (2, 256, 12, 0), None)])
+def test_bgather_vector_width(row_bytes, offsets, width):
+    """The kernel's vector is the widest that divides the row's bytes,
+    both base addresses and both strides; rows that are not whole 4-byte
+    words raise."""
+    if width is None:
+        with pytest.raises(ValueError):
+            gather_op.vector_bytes(row_bytes, *offsets)
+    else:
+        assert gather_op.vector_bytes(row_bytes, *offsets) == width
+
+
+@pytest.mark.parametrize("total, blocks", [
+    (1, 1), (256, 1), (257, 2), (32768, 128), (5_242_880, 8 * 132),
+    (2**31 - 1, 8 * 132)])
+def test_bgather_launch_plan(total, blocks):
+    """A thread a vector up to eight blocks on each of 132 SMs, the
+    grid-stride loop past that."""
+    assert gather_op.launch_plan(total, 132) == blocks
+
+
+def test_bgather_reads_rows_in_place():
+    """Which views the kernel reads without a copy: each row contiguous,
+    whatever the stream and row strides."""
+    cloud = torch.zeros(2, 5, 4)
+    assert gather_op._rows_contiguous(cloud)
+    assert gather_op._rows_contiguous(cloud[..., :3])
+    assert gather_op._rows_contiguous(cloud[:, ::2])
+    assert gather_op._rows_contiguous(cloud[:, :, None, :3])
+    assert not gather_op._rows_contiguous(cloud[..., ::2])
+    assert not gather_op._rows_contiguous(cloud.transpose(1, 2))
+    assert gather_op._rows_contiguous(torch.zeros(2, 5))
 
 
 def test_wrappers_refuse_non_cuda_devices():
@@ -667,7 +735,14 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError):
         knn_op.knn_grid(torch.empty(64, 144, **meta),
                         torch.empty(256, 3, **meta), 5, 2.0, 1.0)
+    with pytest.raises(ValueError):
+        gather_op.bgather(torch.empty(2, 50, 4, **meta),
+                          torch.empty(2, 7, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError):
+        gather_op.bgather(torch.empty(2, 50, 4),
+                          torch.empty(2, 7, dtype=torch.int32, **meta))
     assert seg_op.launches == select_op.launches == 0
+    assert gather_op.launches == 0
     assert odom_op.launches == lm_op.launches == 0
     assert assoc_op.launches == insert_op.launches == knn_op.launches == 0
     assert knn_op.grid_launches == 0
@@ -702,9 +777,9 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     names = [s.name for s in _build.sources()]
-    assert names == sorted(["assoc.cu", "errors.cu", "insert.cu", "knn.cu",
-                            "lm.cu", "odom_window.cu", "seg_scan.cu",
-                            "select.cu", "stamp.cu"])
+    assert names == sorted(["assoc.cu", "errors.cu", "gather.cu",
+                            "insert.cu", "knn.cu", "lm.cu", "odom_window.cu",
+                            "seg_scan.cu", "select.cu", "stamp.cu"])
     before = _build.library_path()
     assert before == _build.library_path()
     with open(csrc / "lm.cu", "a") as fh:

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from aloam_tpu.ops import gridmap as jgrid
+from aloam_tpu_torch.ops import gather as gather_op
 from aloam_tpu_torch.ops import gridmap
 from aloam_tpu_torch.ops.gridmap import TableShard
 
@@ -186,7 +187,7 @@ def test_owned_rows_exchange_is_the_whole_gather(n):
     rows = torch.randint(0, H, (B, 50, 8), generator=torch.Generator()
                          .manual_seed(0))
     rows[0, 0, :] = 3
-    want = gridmap.bgather(whole.pts, rows)
+    want = gather_op.bgather(whole.pts, rows)
     got = sum(gridmap._owned_rows(g.pts, rows, TableShard(None, r, n))
               .view(torch.int32) for r, g in enumerate(_parts(whole, n)))
     assert torch.equal(got, want.view(torch.int32))
