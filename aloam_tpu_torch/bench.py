@@ -47,8 +47,8 @@ from aloam_tpu_torch import graph, parallel, pipeline
 from aloam_tpu_torch.config import PRESETS
 from aloam_tpu_torch.eval import ate_rmse
 from aloam_tpu_torch.io import synthetic as syn
-from aloam_tpu_torch.ops import (assoc, gather, insert, knn, lm, odom,
-                                 select, tolerance, voxel)
+from aloam_tpu_torch.ops import (assoc, evict, gather, insert, knn, lm,
+                                 odom, select, tolerance, voxel)
 
 _AZ = int(os.environ.get("BENCH_AZIMUTH", "1800"))
 _N_BLOCKS = int(os.environ.get("BENCH_BLOCKS", "3"))
@@ -187,7 +187,8 @@ _COUNTERS = {"select_rings": (select, "launches"),
              "merge_tiles": (insert, "launches"),
              "knn_select": (knn, "grid_launches"),
              "knn_select_rows": (knn, "launches"),
-             "bgather": (gather, "launches")}
+             "bgather": (gather, "launches"),
+             "evict_and_count": (evict, "launches")}
 
 
 def launch_counts() -> dict:

@@ -52,6 +52,7 @@ SIGNATURES = {
     "aloam_stamp": (_P, _I, _P),
     "aloam_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I,
                           _P),
+    "aloam_evict_count": (_P,) * 6 + (_I,) * 6 + (_P,),
 }
 
 

@@ -17,9 +17,9 @@ Layout, unchanged from the JAX package so states compare bit for bit:
 ``pts (B, H, 3·Bk)`` f32 bucket-planar [x0..|y0..|z0..] and ``aux (B, H,
 5·Bk)`` i32 planar [intensity bits | cx | cy | cz | voxel id].
 
-The port updates the tables in place (``evict_and_count`` and the insert's
-merge, ``ops/insert.merge_rows``): a state passed to the mapping step is
-consumed.
+The port updates the tables in place (``evict_and_count``'s clear,
+``ops/evict``, and the insert's merge, ``ops/insert.merge_rows``): a state
+passed to the mapping step is consumed.
 
 A table may be partitioned over its bucket axis (:class:`TableShard`): a
 rank then holds rows [index·H/count, (index+1)·H/count) of every stream's
@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from aloam_tpu_torch.ops import evict as evict_op
 from aloam_tpu_torch.ops import gather as gather_op
 from aloam_tpu_torch.ops import insert as insert_op
 from aloam_tpu_torch.ops import knn as knn_op
@@ -259,27 +260,19 @@ def evict_and_count(grid: GridMap, center: torch.Tensor,
     cell planes: clears every live entry outside center ± window_half (the
     reference's cube shift, laserMapping.cpp:323-507) and counts the live
     entries within center ± local_half after the clear (the 5×5×3-cube
-    count that gates the solve, :531-554). center (B, 3) pose cells.
+    count that gates the solve, :531-554). center (B, 3) int32 pose cells,
+    the halves (3,) int32.
 
-    The clear runs unconditionally, in place, as masked fills (the JAX
-    package skips it under a ``lax.cond`` on frames with nothing out; the
-    condition would cost a host sync here). With ``evict`` False the table
-    is untouched and the census counts stale in-window entries too. On a
-    shard each rank clears its own rows and both counts are summed over
-    the group. Returns (grid, n_cleared (B,), n_near (B,))."""
-    c = grid._auxv()[:, :, 1:4, :]                     # (B, H, 3, Bk)
-    live = c[:, :, 0, :] != _EMPTY
-    d = (c - center[:, None, :, None]).abs()
-    near = live & (d <= local_half[None, None, :, None]).all(dim=2)
-    if not evict:
-        n_near = _group_sum(near.sum(dim=(1, 2)), shard)
-        return grid, torch.zeros_like(n_near), n_near
-    out = live & (d > window_half[None, None, :, None]).any(dim=2)
-    n_near = (near & ~out).sum(dim=(1, 2))
-    n_out = out.sum(dim=(1, 2))
-    _clear(grid, out)
-    if shard is not None:
-        n_out, n_near = _group_sum(torch.stack([n_out, n_near]), shard)
+    The pass is ``ops/evict.evict_and_count``: for CUDA tables a kernel
+    that reads the cell planes once and writes only the slots it clears,
+    for CPU ones the plain version. The clear runs every call, in place
+    (the JAX package skips it under a ``lax.cond`` on frames with nothing
+    out; the condition would cost a host sync here). With ``evict`` False
+    the table is untouched and the census counts stale in-window entries
+    too. On a shard each rank clears its own rows and both counts are
+    summed over the group. Returns (grid, n_cleared (B,), n_near (B,))."""
+    n_out, n_near = _group_sum(evict_op.evict_and_count(
+        grid.pts, grid.aux, center, window_half, local_half, evict), shard)
     return grid, n_out, n_near
 
 

@@ -26,7 +26,10 @@ One definition, read by ``chip_smoke.py`` and by the bench's kernel check
   knn_select(_rows)      d2 and neighbours exact (the same rounded
                          operations in the same order, lowest-index ties);
   bgather                every output bit equal (a copy: NaN payloads and
-                         -0.0 included).
+                         -0.0 included);
+  evict_and_count        both tables bit-equal after the in-place clear and
+                         the counts exact (a copy of sentinels and integer
+                         counts: no arithmetic on floats).
 """
 
 from __future__ import annotations
@@ -49,10 +52,12 @@ def agree(name: str, got, want, kind: str | None = None, inputs=None):
     "corner"; ``inputs`` the kernel's arguments, which the seg scan's
     bound reads (its values and heads). Tuples of outputs are compared
     element by element."""
-    if name == "bgather":
-        same = got.shape == want.shape and got.dtype == want.dtype \
-            and torch.equal(got.contiguous().view(torch.uint8),
-                            want.contiguous().view(torch.uint8))
+    if name in ("bgather", "evict_and_count"):
+        pairs = [(got, want)] if torch.is_tensor(got) else zip(got, want)
+        same = all(g.shape == w.shape and g.dtype == w.dtype
+                   and torch.equal(g.contiguous().view(torch.uint8),
+                                   w.contiguous().view(torch.uint8))
+                   for g, w in pairs)
         return same, 0.0 if same else float("inf")
     if name == "select_rings":
         return torch.equal(got, want), absdiff(got, want).max().item()

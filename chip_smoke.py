@@ -19,8 +19,9 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    map_query_chunk 2048), and the single-stream bench scene (seed 42,
    10 m/s, padded to ``PRESETS["HDL-64"]``), cached under
    ``.bench_cache/``;
-4. kernels: each of step_b's seven kernels (the six that replace a
-   ``pallas_call`` and the row gather, ``bgather``) against its plain
+4. kernels: each of step_b's eight kernels (the six that replace a
+   ``pallas_call``, the row gather, ``bgather``, and the map window's
+   evict and census, ``evict_and_count``) against its plain
    PyTorch version on the card, on every distinct input shape the main path gave
    it in frame 1 of ``step_b``, with the stated tolerance, both timed
    with CUDA events (the kernel back to back, its wrapper's host cost
@@ -55,14 +56,20 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    ``flat[gidx]`` at the ``hdl64-fleet-b32`` frame's five gather shapes
    and on small cases, timed beside its byte bound and the library's
    indexing, and an index past either end of a stream's rows ending a
-   child process with a CUDA error (``check_gather``). A kernel
+   child process with a CUDA error (``check_gather``); the map window's
+   evict and census (``ops/evict.evict_and_count``, ``csrc/evict.cu``)
+   bit-equal to its plain version, tables and counts, with ``evict`` on
+   and off, on tables planted with cells out of the window at the
+   ``hdl64-fleet-b32`` frame's shapes, at B = 1 and on small tables that
+   take the 8- and 4-byte vectors, and timed beside its byte bound at
+   four fillings of the fleet's tables (``check_evict``). A kernel
    that updates the tables in place gets a fresh clone of them for every
    call, timed calls included;
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
    kernels (its five launch counters must rise, and every odometry search
    must declare ``ring_seg`` > 0) and with the plain versions; per-frame
    odometry poses must agree;
-6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its seven
+6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its eight
    launch counters must rise, ``ring_seg`` > 0 as in phase 5) and with
    the plain versions; map poses must agree (tightly unless a gate
    flipped); a third kernel run reads each stage's device span from the
@@ -74,7 +81,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    the same); scans/s, peak device
    memory and the odometry and mapped ATE against the ground truth (must
    be < 0.5 m);
-7. single-stream kernels: each of the single-stream step's seven kernels
+7. single-stream kernels: each of the single-stream step's eight kernels
    against its plain version, timed and bounded as in phase 4, at the
    inputs frame 1 of the single-stream step gave them (``knn_select``:
    the table entry, ``ops/knn.knn_grid``, which ``gridmap.knn`` calls),
@@ -86,7 +93,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    candidates, equal distances, negative coordinates, queries on cell
    boundaries, ±1e5 m, Q = 1 and 1001; Bk 32 and 48);
 8. single: ``pipeline.step`` over the single-stream scene's 8 frames at
-   ``PRESETS["HDL-64"]`` with the kernels (its seven launch counters, the
+   ``PRESETS["HDL-64"]`` with the kernels (its eight launch counters, the
    table entry's among them, must rise; ``ring_seg`` > 0) and with the
    plain versions;
    map poses as in phase 6; ms/scan, peak device memory, a staged kernel
@@ -120,7 +127,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
 11. parallel: ``aloam_tpu_torch.parallel`` over ``torch.distributed``.
    (a) One NCCL rank, a (1, 1) mesh, through the compiled entry points:
    ``batched_step_fn`` over phase 6's 16 streams and 8 frames, captured
-   once (its body launching each of step_b's seven kernels as one eager
+   once (its body launching each of step_b's eight kernels as one eager
    frame does) and replayed 8 times, every output of every frame and the
    final tables bit-equal to phase 6's eager kernel run; ``step_b`` with
    the rank's ``TableShard`` of the NCCL group of one through a
@@ -141,12 +148,12 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    as a (1, 2) mesh, each holding half of every table of phase 6's 16
    streams (the partition assert of ``parallel.dryrun.check_partition``
    before and after), step the 8 frames with the kernels (launch counters
-   from 0, each of step_b's seven must rise); both ranks' poses and
+   from 0, each of step_b's eight must rise); both ranks' poses and
    metrics equal each other and phase 6's bit for bit, and rank 0 steps
    the same frames with the whole tables (``pipeline.step_b``): the
    tables gathered by ``gather_tables`` equal them bit for bit. Rank 0's
-   ``merge_rows`` and ``assoc_cell`` inputs at frame 1 agree with their
-   plain versions, two launches bit-equal. Scans/s, each rank's table
+   ``merge_rows``, ``assoc_cell`` and ``evict_and_count`` inputs at frame 1
+   agree with their plain versions, two launches bit-equal. Scans/s, each rank's table
    MiB and the exchange ms a frame (every collective of the step timed
    between two synchronizes, on a second pass through the eager step).
    Over gloo ``batched_step_fn`` runs eagerly (``parallel.graphed``).
@@ -162,7 +169,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    (b) ``parallel.batched_step_jit`` over phase 6's 16 streams and 8
    frames: the outputs of every frame, kept on the card until the end,
    and the final tables bit-equal to phase 6's eager kernel run; one
-   capture, whose body launched each of step_b's seven kernels as often as
+   capture, whose body launched each of step_b's eight kernels as often as
    one eager frame does, and 8 replays. (c) ``pipeline.make_step_fn`` over
    phase 8's frames, bit-equal to phase 8, then 4 frames at
    ``mapping_skip_frame`` 2 (two graphs, one a gate branch) bit-equal to
@@ -178,7 +185,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    time is printed;
 13. bench: first the bench's preset rung in this process, ``step_b`` at
    ``PRESETS["HDL-64"]``'s caps over phase 3's streams, its launches
-   counted from 0 (all seven kernels must launch), its kernels held against
+   counted from 0 (all eight kernels must launch), its kernels held against
    their plain versions at its frame-1 inputs as in phase 4, and its ATE
    as in phase 6; then ``python -m aloam_tpu_torch.pregen_streams`` and
    ``python -m aloam_tpu_torch.bench`` as child processes, each with a
@@ -199,7 +206,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    ``batched_step_jit`` over frames 0-19 bit-equal to the eager ``step``
    and ``step_b``; (d) ``make_step_fn`` and (e) ``batched_step_jit`` at
    B = 1 over all 500 frames, each path's launch counters set to 0 just
-   before and read just after (each of its seven must rise), held to
+   before and read just after (each of its eight must rise), held to
    tests/test_long_drift.py's gates (``drift.gates``: map_solved >= 495,
    drift < 3 %, ATE < 10 m, every pose finite, the first 200 frames'
    drift within 1.25 x the f64 oracle's, or 1.25 x JAX's own ratio where
@@ -242,8 +249,8 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (KNN_CASES, MERGE_CASES,  # noqa: E402
-                           SELECT_CASES, knn_case, merge_case, queries_near,
-                           segmented_reference, select_case)
+                           SELECT_CASES, evict_table, knn_case, merge_case,
+                           queries_near, segmented_reference, select_case)
 
 B = 16
 N_FRAMES = 8           # bench.py's batched default
@@ -277,7 +284,7 @@ DIST_ATE_LIMIT_1, DIST_ATE_LIMIT_B = 0.12, 0.15
 KNN_Q, KNN_M = 4096, 36864
 WORKER_TIMEOUT_S = 420
 # phase 11 (c): the kernels whose inputs change with the table partition
-TABLE_KERNELS = ("assoc_cell", "merge_tiles")
+TABLE_KERNELS = ("assoc_cell", "merge_tiles", "evict_and_count")
 DIST_CACHE = os.path.join(
     CACHE_DIR, f"chip_smoke_dist_hdl64_a{N_AZIMUTH}_b{B}_f{N_FRAMES}.npz")
 DIST_SINGLE_CACHE = os.path.join(
@@ -335,16 +342,22 @@ KERNELS = {
     # package, which leaves it to XLA: it replaces no pallas_call)
     "bgather": ("gather", "bgather", "bgather_plain",
                 "aloam_tpu_torch/csrc/gather.cu", None),
+    # the map window's evict and census (gridmap.evict_and_count; the JAX
+    # package leaves it to XLA: it replaces no pallas_call)
+    "evict_and_count": ("evict", "evict_and_count", "evict_and_count_plain",
+                        "aloam_tpu_torch/csrc/evict.cu", None),
 }
 # each wrapper's launch counter, where it is not the module's `launches`
 COUNTERS = {"knn_select": "grid_launches", "lm_fused_s": "s_launches"}
 # kernels that update their first k arguments in place (the map tables)
-IN_PLACE = {"merge_tiles": 2}
+IN_PLACE = {"merge_tiles": 2, "evict_and_count": 2}
 # the kernels each path runs
 FRONT_KERNELS = ("select_rings", "segmented_prefix_sums", "window_mins",
                  "lm_fused", "bgather")
-STEP_KERNELS = FRONT_KERNELS + ("assoc_cell", "merge_tiles")
-SINGLE_KERNELS = FRONT_KERNELS + ("merge_tiles", "knn_select")
+STEP_KERNELS = FRONT_KERNELS + ("assoc_cell", "merge_tiles",
+                                 "evict_and_count")
+SINGLE_KERNELS = FRONT_KERNELS + ("merge_tiles", "knn_select",
+                                  "evict_and_count")
 DIST_KERNELS = STEP_KERNELS + ("lm_fused_s",)
 DIST_SINGLE_KERNELS = SINGLE_KERNELS + ("lm_fused_s",)
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM3
@@ -587,6 +600,9 @@ def kernel_work(name, args, kw, out):
     flops = 0
     if name == "bgather":
         nbytes = gather_bytes(args[0], args[1], out)
+    elif name == "evict_and_count":
+        nbytes = evict_bytes(args[1], int(out[2].sum())) \
+            + _nbytes(list(args[2:5])) + _nbytes(list(out[2:]))
     elif name == "knn_select":
         from aloam_tpu_torch.ops.gridmap import block_buckets
         pts, q, cell, radius = args[0], args[1], args[3], args[4]
@@ -636,6 +652,18 @@ def gather_bytes(x, idx, out) -> int:
     rows = (idx.long() + off).unique().numel()
     row = math.prod(x.shape[2:]) * x.element_size()
     return rows * row + _nbytes([idx, out])
+
+
+def evict_bytes(aux, cleared: int) -> int:
+    """The least bytes of the window pass over a table ``aux`` as it was
+    before the call: every slot's cx read (4 bytes), a live slot's cy and
+    cz besides (8), and a cleared slot's eight planes written (32). At 12
+    bytes a slot, every slot live, the fleet's two tables need 0.120 ms."""
+    from aloam_tpu_torch.ops.gridmap import _EMPTY
+    bk = aux.shape[-1] // 5
+    live = int((aux.view(aux.shape[:-1] + (5, bk))[..., 1, :]
+                != _EMPTY).sum())
+    return 4 * (aux.numel() // 5) + 8 * live + 32 * cleared
 
 
 def library_gather(x, idx):
@@ -1415,6 +1443,156 @@ def check_gather(device, card):
             f"each distinct row once) ({card})")
     say(f"[gather] {len(small)} small cases bit-equal ({card})")
     check_gather_range(card)
+
+
+# the fleet's map tables (benchmark/configs/hdl64.json, hdl32.json):
+# (name, H, Bk) of the corner and the surf table
+EVICT_TABLES = (("corner", 8192, 32), ("surf", 16384, 48))
+
+
+def evict_tables(device, seed: int, bsz: int, **kw):
+    """The fleet's two map tables for the window pass, planted by
+    ``_torch_scenes.evict_table`` (``kw``) around centers within ±300
+    cells, with the mapping step's window and local halves (the bench
+    config's cells, ``mapping._window_cells`` / ``_local_cells``), on the
+    card: (center, window, local, [(name, pts, aux)])."""
+    import torch
+
+    from aloam_tpu_torch import mapping
+    cfg = bench_cfg()
+    window = mapping._window_cells(cfg, device)
+    local = mapping._local_cells(cfg, device)
+    rng = np.random.default_rng(seed)
+    center = rng.integers(-300, 300, (bsz, 3)).astype(np.int32)
+    tables = []
+    for name, h, bk in EVICT_TABLES:
+        pts, aux = evict_table(rng, center, window.cpu().numpy(),
+                               local.cpu().numpy(), h, bk, **kw)
+        tables.append((name, torch.from_numpy(pts).to(device),
+                       torch.from_numpy(aux).to(device)))
+    return torch.from_numpy(center).to(device), window, local, tables
+
+
+def check_evict(device, card):
+    """The map window's evict and census (``ops/evict.evict_and_count``,
+    ``csrc/evict.cu``) bit-equal to its plain version on planted tables
+    (``_torch_scenes.evict_table``: cells out of the window in every
+    stream, since no cell's log leaves it; the window's and the local
+    box's edges on each axis; empty and full rows; cells at the int32
+    extremes), with ``evict`` on and off: both tables bit-equal after the
+    call and the counts equal. At the fleet frame's tables (B = 32,
+    corner 8192 x 32 and surf 16384 x 48) and at B = 1 of them; on small
+    tables whose Bk or address takes the 8- and the 4-byte vectors. Then
+    the fleet's two tables timed together, back to back and queued (a
+    fresh copy of the tables for every call), beside the bound
+    (``evict_bytes``: a slot's cx, a live slot's cy and cz, a cleared
+    slot's planes) and the plain version, at five fillings: as planted,
+    clearing and counting only (``evict`` off); a fleet map's (35% of the
+    rows in use, 80% of their slots live) with none out of the window, as
+    on the benchmark's cells, clearing and counting only; every slot
+    live."""
+    import torch
+
+    from aloam_tpu_torch.ops import evict
+    from aloam_tpu_torch.ops.gridmap import _EMPTY
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def like(t):
+        """A copy of ``t`` at its address modulo 16 bytes (so a table
+        placed off a 16-byte boundary keeps its vector width)."""
+        shift = t.data_ptr() % 16 // t.element_size()
+        buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+        return buf[shift:].view(t.shape).copy_(t)
+
+    def both(pts, aux, center, window, local, flag):
+        """(kernel's, plain's) (pts, aux, counts) on copies of a table."""
+        out = []
+        for fn in (evict.evict_and_count, evict.evict_and_count_plain):
+            p, a = like(pts), like(aux)
+            out.append((p, a, fn(p, a, center, window, local, flag)))
+        return out
+
+    def held(tag, pts, aux, center, window, local):
+        for flag in (True, False):
+            (kp, ka, kn), (pp, pa, pn) = both(pts, aux, center, window,
+                                              local, flag)
+            if not (torch.equal(bits(kp), bits(pp)) and torch.equal(ka, pa)
+                    and kn.dtype == pn.dtype == torch.int64
+                    and kn.shape == pn.shape and torch.equal(kn, pn)):
+                fail(f"[evict] {tag} evict={flag}: the kernel's tables or "
+                     f"counts differ from the plain version's "
+                     f"(counts {kn.tolist()} / {pn.tolist()})")
+            if flag and not (pn[0] > 0).all():
+                fail(f"[evict] {tag}: a stream cleared nothing")
+            if not flag and not (torch.equal(ka, aux)
+                                 and torch.equal(bits(kp), bits(pts))):
+                fail(f"[evict] {tag}: evict=False wrote the table")
+        width = evict.vector_bytes(aux.shape[-1] // 5, aux.data_ptr())
+        say(f"[evict] {tag}: pts {tuple(pts.shape)} aux {tuple(aux.shape)} "
+            f"({width}-byte cx vectors) bit-equal with evict on and off, "
+            f"counts equal ({card})")
+
+    for bsz in (32, 1):
+        center, window, local, tables = evict_tables(device, 210 + bsz, bsz)
+        for name, pts, aux in tables:
+            held(f"B={bsz} {name}", pts, aux, center, window, local)
+        del tables
+    g = np.random.default_rng(211)
+    for bsz, h, bk, shift in ((3, 64, 5, 0), (2, 64, 6, 0), (3, 64, 32, 1),
+                              (2, 64, 48, 2)):
+        center = g.integers(-50, 50, (bsz, 3)).astype(np.int32)
+        win, loc = np.array([6, 5, 3], np.int32), np.array([2, 2, 1],
+                                                           np.int32)
+        pts, aux = evict_table(g, center, win, loc, h, bk, 0.6)
+        # a table ``shift`` words past a 16-byte boundary
+        buf = torch.empty(aux.size + shift, dtype=torch.int32, device=device)
+        aux_t = buf[shift:].view(aux.shape).copy_(torch.from_numpy(aux))
+        held(f"B={bsz} H={h} Bk={bk} shifted {shift}",
+             torch.from_numpy(pts).to(device), aux_t,
+             torch.from_numpy(center).to(device),
+             torch.from_numpy(win).to(device),
+             torch.from_numpy(loc).to(device))
+
+    fillings = (("planted", dict(), True),
+                ("planted, count only", dict(), False),
+                ("fleet map, none out", dict(rows_used=0.35, fill=0.8,
+                                             edges=False), True),
+                ("fleet map, count only", dict(rows_used=0.35, fill=0.8,
+                                               edges=False), False),
+                ("every slot live", dict(fill=1.0), True))
+    for tag, kw, flag in fillings:
+        center, window, local, tables = evict_tables(device, 212, 32, **kw)
+
+        def calls(fn, n):
+            pool = iter([[(p.clone(), a.clone()) for _, p, a in tables]
+                         for _ in range(n)])
+
+            def call():
+                for p, a in next(pool):
+                    fn(p, a, center, window, local, flag)
+            return call
+        cleared = sum(int(evict.evict_and_count_plain(
+            p.clone(), a.clone(), center, window, local, flag)[0].sum())
+            for _, p, a in tables)
+        nbytes = sum(evict_bytes(a, 0) for _, _, a in tables) \
+            + 32 * cleared
+        bound_ms, bound_by = bound_of(nbytes, 0)
+        ms = cuda_ms(calls(evict.evict_and_count, 11), 10)
+        device_ms = cuda_ms(calls(evict.evict_and_count, 11), 10,
+                            queued=True)
+        plain_ms = cuda_ms(calls(evict.evict_and_count_plain, 4), 3)
+        live = sum(int((a.view(a.shape[0], a.shape[1], 5, -1)[:, :, 1]
+                        != _EMPTY).sum()) for _, _, a in tables)
+        every = bound_of(12 * sum(a.numel() // 5 for _, _, a in tables)
+                         + 32 * cleared, 0)[0]
+        say(f"[evict] B=32 corner + surf, {tag} (evict={flag}): "
+            f"{live} live slots, {cleared} cleared; kernel {ms:.4f} ms "
+            f"(device {device_ms:.4f}) plain {plain_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB; "
+            f"{every:.4f} ms at 12 bytes a slot) ({card})")
+        del tables
 
 
 def check_insert_twin(mods, device, card):
@@ -2659,9 +2837,9 @@ def table_worker(tmp: str, backend: str) -> None:
         if rank == 0:
             check_recorded(mods, recorded, {}, card)
             check_repeatable(mods, recorded, f"{tag} rank 0")
-            say(f"{tag} rank 0: {len(recorded)} merge_rows / assoc_cell "
-                f"inputs of the split step's frame 1 agree with the plain "
-                f"versions; two launches on each bit-equal")
+            say(f"{tag} rank 0: {len(recorded)} merge_rows / assoc_cell / "
+                f"evict_and_count inputs of the split step's frame 1 agree "
+                f"with the plain versions; two launches on each bit-equal")
         dist.barrier()
         np.savez(os.path.join(tmp, f"rank{rank}.npz"), **arrays)
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
@@ -3080,7 +3258,7 @@ def check_preset_rung(pipeline, mods, cfg, frames, gt, device, results,
     ``step_b`` at ``PRESETS["HDL-64"]``'s caps (the bench's
     map_query_chunk) over phase 3's B = 16 streams, padded to the preset's
     n_raw. Its launches are counted from 0 over the frames (each of
-    step_b's seven kernels must launch), its kernels held against their
+    step_b's eight kernels must launch), its kernels held against their
     plain versions at the inputs its frame 1 gives them, as phase 4 holds
     them at the bench config, and its ATE as phase 6's. Returns the
     launches."""
@@ -3350,6 +3528,7 @@ def main() -> None:
     check_adversarial_merge(mods, device, card)
     check_stamp(device, card)
     check_gather(device, card)
+    check_evict(device, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
     launches, st_b, outs_b, ms_b, busy_b = run_step(pipeline, mods, cfg, frames, gt,
                                             device, card)

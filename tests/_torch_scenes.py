@@ -265,3 +265,49 @@ def knn_case(rng, case: str, bk: int):
     elif case == "single":
         q = q[:1]
     return grid_table(pts, h, bk), q.astype(np.float32)
+
+
+def evict_table(rng, center, window, local, h: int, bk: int,
+                rows_used: float = 1.0, fill: float = 0.5,
+                edges: bool = True):
+    """A map table for the window pass, numpy: (pts (B, H, 3·bk) f32, aux
+    (B, H, 5·bk) i32), B = len(center), H >= 3. A share ``rows_used`` of
+    each stream's rows holds live slots, each live with probability
+    ``fill``, its cell drawn from center ± (window + 2), or center ±
+    window without ``edges`` (then none is out of the window). With
+    ``edges``: row 0 is empty; row 1 is full, its first slots on the edges
+    (one axis at ± local, ± (local + 1), ± window, ± (window + 1), the
+    others at the center); row 2 is full of cells at the int32 extremes,
+    where the difference to the center wraps. Live slots carry random
+    points, intensity bits and voxel ids; empty ones the table's sentinels
+    (_EMPTY cells, 1e9 points)."""
+    center = np.asarray(center, np.int64)
+    window, local = np.asarray(window), np.asarray(local)
+    bsz = len(center)
+    live = rng.random((bsz, h, bk), np.float32) < fill
+    live &= (rng.random((bsz, h, 1), np.float32) < rows_used)
+    span = window + 2 if edges else window
+    cells = np.stack([(center[:, a, None, None] + rng.integers(
+        -span[a], span[a] + 1, (bsz, h, bk))).astype(np.int32)
+        for a in range(3)], axis=2)                       # (B, H, 3, bk)
+    if edges:
+        live[:, 0], live[:, 1:3] = False, True
+        on = [np.eye(3, dtype=np.int64)[a] * s * off
+              for a in range(3)
+              for off in (local[a], local[a] + 1, window[a], window[a] + 1)
+              for s in (1, -1)]
+        n = min(len(on), bk)
+        cells[:, 1, :, :n] = (center[:, :, None]
+                              + np.stack(on[:n], axis=1)).astype(np.int32)
+        extremes = np.array([-2 ** 31, 2 ** 31 - 1, -2 ** 31 + 1,
+                             2 ** 31 - 2], np.int32)
+        cells[:, 2] = extremes[rng.integers(0, 4, (bsz, 3, bk))]
+    aux = np.empty((bsz, h, 5, bk), np.int32)
+    aux[:, :, 0] = np.where(live, rng.random((bsz, h, bk), np.float32),
+                            0).astype(np.float32).view(np.int32)
+    aux[:, :, 1:4] = np.where(live[:, :, None], cells, _EMPTY)
+    aux[:, :, 4] = np.where(live, rng.integers(-2 ** 31, 2 ** 31 - 1,
+                                               (bsz, h, bk)), 0)
+    pts = np.where(live[:, :, None], rng.uniform(
+        -500, 500, (bsz, h, 3, bk)), 1e9).astype(np.float32)
+    return pts.reshape(bsz, h, 3 * bk), aux.reshape(bsz, h, 5 * bk)

@@ -777,7 +777,7 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     names = [s.name for s in _build.sources()]
-    assert names == sorted(["assoc.cu", "errors.cu", "gather.cu",
+    assert names == sorted(["assoc.cu", "errors.cu", "evict.cu", "gather.cu",
                             "insert.cu", "knn.cu", "lm.cu", "odom_window.cu",
                             "seg_scan.cu", "select.cu", "stamp.cu"])
     before = _build.library_path()
