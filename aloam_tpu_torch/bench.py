@@ -47,8 +47,8 @@ from aloam_tpu_torch import graph, parallel, pipeline
 from aloam_tpu_torch.config import PRESETS
 from aloam_tpu_torch.eval import ate_rmse
 from aloam_tpu_torch.io import synthetic as syn
-from aloam_tpu_torch.ops import (assoc, evict, gather, insert, knn, lm,
-                                 odom, select, tolerance, voxel)
+from aloam_tpu_torch.ops import (assoc, insert, kernels, knn, lm, odom,
+                                 select, voxel)
 
 _AZ = int(os.environ.get("BENCH_AZIMUTH", "1800"))
 _N_BLOCKS = int(os.environ.get("BENCH_BLOCKS", "3"))
@@ -177,30 +177,11 @@ def _on(device, arrays):
             for a in arrays]
 
 
-# each kernel's launch counter: (module, counter), as each wrapper counts
-# the launches it makes (a graph's replays relaunch what its capture did)
-_COUNTERS = {"select_rings": (select, "launches"),
-             "segmented_prefix_sums": (voxel, "launches"),
-             "window_mins": (odom, "launches"),
-             "lm_fused": (lm, "launches"),
-             "assoc_cell": (assoc, "launches"),
-             "merge_tiles": (insert, "launches"),
-             "knn_select": (knn, "grid_launches"),
-             "knn_select_rows": (knn, "launches"),
-             "bgather": (gather, "launches"),
-             "evict_and_count": (evict, "launches")}
-
-
-def launch_counts() -> dict:
-    """Each kernel's launches since its counter's last reset."""
-    return {k: getattr(mod, c) for k, (mod, c) in _COUNTERS.items()}
-
-
 def _say_graphs(tag: str, captures0: int, replays0: int,
                 launches0: dict) -> None:
     """One line of a run: its graph captures and replays, and its kernel
     launches (JSON, from ``launches0``) outside the replays."""
-    now = launch_counts()
+    now = kernels.counts()
     print(f"[bench] {tag}: {graph.captures - captures0} graph captures, "
           f"all in warm-up, {graph.replays - replays0} replays; kernel "
           f"launches " + json.dumps({k: now[k] - launches0[k] for k in now}),
@@ -213,7 +194,7 @@ def bench_single(cfg, n_frames, device):
     of seed 42 at 10 m/s from a fresh state."""
     warm_xyz, warm_mask, _ = _cached_sequence(4, 7, 10.0)
     xyz, mask, gt = _cached_sequence(n_frames, 42, 10.0)
-    c0, r0, k0 = graph.captures, graph.replays, launch_counts()
+    c0, r0, k0 = graph.captures, graph.replays, kernels.counts()
     step = pipeline.make_step_fn(cfg)
     state = pipeline.init_state(cfg, 1, device)
     for x, m in zip(_on(device, warm_xyz), _on(device, warm_mask)):
@@ -241,7 +222,7 @@ def run_batched(cfg, batch, n_frames, device):
         print(f"[bench] {tag}: step_b's kernels agree with their plain "
               f"versions at its frame-1 inputs: " + ", ".join(
                   f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
-    c0, r0, k0 = graph.captures, graph.replays, launch_counts()
+    c0, r0, k0 = graph.captures, graph.replays, kernels.counts()
     step = parallel.batched_step_jit(cfg, donate=True)
     state = parallel.batched_init(cfg, batch, device)
     for f in range(2):
@@ -269,81 +250,35 @@ def bench_batched(cfg, batch, n_frames, device):
 
 # --- the kernels on the card against their plain versions ------------------
 
-# step_b's kernels: (module, wrapper, plain version, how many leading
-# arguments it updates in place)
-_STEP_KERNELS = {
-    "select_rings": (select, "select_rings", "select_rings_plain", 0),
-    "segmented_prefix_sums": (voxel, "segmented_prefix_sums",
-                              "segmented_prefix_sums_plain", 0),
-    "window_mins": (odom, "window_mins", "window_mins_plain", 0),
-    "lm_fused": (lm, "lm_fused", "lm_fused_plain", 0),
-    "assoc_cell": (assoc, "assoc_cell", "assoc_cell_plain", 0),
-    "merge_tiles": (insert, "merge_rows", "merge_rows_plain", 2)}
-
-
-def record_inputs(wrappers: dict, drive) -> dict:
-    """Run ``drive()`` with each wrapper of ``wrappers`` ({name: (module,
-    attribute)}) recording a copy of its inputs, one record per name and
-    input signature (tensor shapes, other arguments but floats by value).
-    Returns {(name, signature): (args, kwargs)}."""
-    recorded, saved = {}, []
-
-    def recorder(name, fn):
-        def call(*args, **kw):
-            key = (name, tuple(tuple(a.shape) if torch.is_tensor(a) else a
-                               for a in args if not isinstance(a, float)))
-            if key not in recorded:
-                recorded[key] = (tuple(a.clone() if torch.is_tensor(a) else a
-                                       for a in args), dict(kw))
-            return fn(*args, **kw)
-        return call
-
-    try:
-        for name, (mod, attr) in wrappers.items():
-            saved.append((mod, attr, getattr(mod, attr)))
-            setattr(mod, attr, recorder(name, saved[-1][2]))
-        drive()
-    finally:
-        for mod, attr, fn in reversed(saved):
-            setattr(mod, attr, fn)
-    return recorded
-
-
 def verify_rung(cfg, batch, xyz, mask, device) -> dict:
-    """``step_b``'s six kernels against their plain versions at the inputs
-    frame 1 of a rung gives them (its first two frames, from a fresh
-    state; one check per kernel and input shape), within
-    ``ops/tolerance.py``'s bounds: each batch size and cap set gives the
-    kernels launch plans that :func:`verify_kernels`' shapes do not
-    reach. A kernel updating tables in place gets its own copy of them on
-    each side. Raises on a disagreement; returns each kernel's max abs
-    error."""
+    """Each kernel ``step_b`` launches (``kernels.STEP_B``) against its
+    plain version at the inputs frame 1 of a rung gives them (its first
+    two frames, from a fresh state; one check per kernel and input
+    shape), within its ``ops/kernels.py`` bound: each batch size and cap
+    set gives the kernels launch plans that :func:`verify_kernels`'
+    shapes do not reach. A kernel updating tables in place gets its own
+    copy of them on each side. Raises on a disagreement; returns each
+    kernel's max abs error."""
     state = pipeline.init_state(cfg, batch, device)
     state, _ = pipeline.step_b(state, *_on(device, (xyz[0], mask[0])), cfg)
-    recorded = record_inputs(
-        {n: spec[:2] for n, spec in _STEP_KERNELS.items()},
+    recorded = kernels.record_inputs(
+        kernels.STEP_B,
         lambda: pipeline.step_b(state, *_on(device, (xyz[1], mask[1])), cfg))
     del state
-    errs = dict.fromkeys(_STEP_KERNELS, 0.0)
+    errs = dict.fromkeys(kernels.STEP_B, 0.0)
     for (name, _), (args, kw) in recorded.items():
-        mod, kern, plain, k = _STEP_KERNELS[name]
-
-        def run(fn):
-            own = tuple(a.clone() for a in args[:k])
-            out = fn(*own, *args[k:], **kw)
-            return own + tuple(out) if k else out
-
         kind = next((a for a in args if isinstance(a, str)), None)
         errs[name] = max(errs[name], _check(
-            name, run(getattr(mod, kern)), run(getattr(mod, plain)), kind,
+            name, kernels.run(name, kernels.wrapper(name), args, kw),
+            kernels.run(name, kernels.plain(name), args, kw), kind,
             inputs=args))
-    if len({name for name, _ in recorded}) != len(_STEP_KERNELS):
+    if len({name for name, _ in recorded}) != len(kernels.STEP_B):
         raise RuntimeError(f"step_b ran only {sorted(recorded)}")
     return errs
 
 
 def _check(name, got, want, kind=None, inputs=None) -> float:
-    ok, err = tolerance.agree(name, got, want, kind, inputs)
+    ok, err = kernels.agree(name, got, want, kind, inputs)
     if not ok:
         raise RuntimeError(f"{name}{'' if kind is None else ' ' + kind}: "
                            f"the kernel disagrees with its plain version "
@@ -451,7 +386,7 @@ def _ring_segmented(rng, bsz, n_rings, seg, qn):
 
 def verify_kernels(device) -> dict:
     """Each CUDA kernel on the card against its plain PyTorch version, on
-    seeded inputs at bench.py's shapes, within ``ops/tolerance.py``'s
+    seeded inputs at bench.py's shapes, within ``ops/kernels.py``'s
     bounds: knn_select's cache entry (n 512, bw 48) and its table entry;
     assoc_cell (2 tiles of 256, both kinds); merge_tiles (the in-place
     ``merge_rows``, B 2 × 64 rows, both tables as a whole); the seg scan

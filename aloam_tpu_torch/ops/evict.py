@@ -30,13 +30,25 @@ _MAX_STREAMS = 65535      # grid.y
 _MAX_SLOTS = 2**31 - 1    # the kernel counts a stream's slots in 32 bits
 
 
+def _clear(pts: torch.Tensor, av: torch.Tensor, out: torch.Tensor,
+           empty: int, far: float) -> None:
+    """Clear the slots ``out`` (B, H, Bk) of a table in place: ``av`` its
+    aux planes (B, H, 5, Bk)."""
+    av[:, :, 0, :].masked_fill_(out, 0)
+    av[:, :, 1:4, :].masked_fill_(out[:, :, None, :], empty)
+    av[:, :, 4, :].masked_fill_(out, 0)
+    pts.view(av.shape[:2] + (3, -1)).masked_fill_(out[:, :, None, :], far)
+
+
 def evict_and_count_plain(pts: torch.Tensor, aux: torch.Tensor,
                           center: torch.Tensor, window_half: torch.Tensor,
                           local_half: torch.Tensor, evict: bool = True):
     """Plain PyTorch version of :func:`evict_and_count`."""
-    from aloam_tpu_torch.ops.gridmap import _EMPTY, GridMap, _clear
-    grid = GridMap(pts=pts, aux=aux)
-    c = grid._auxv()[:, :, 1:4, :]                     # (B, H, 3, Bk)
+    # the table's sentinels stay gridmap's until one module owns the table
+    # format; imported here, since gridmap imports this module
+    from aloam_tpu_torch.ops.gridmap import _EMPTY, _FAR
+    av = aux.view(aux.shape[:2] + (5, -1))
+    c = av[:, :, 1:4, :]                               # (B, H, 3, Bk)
     live = c[:, :, 0, :] != _EMPTY
     d = (c - center[:, None, :, None]).abs()
     near = live & (d <= local_half[None, None, :, None]).all(dim=2)
@@ -46,7 +58,7 @@ def evict_and_count_plain(pts: torch.Tensor, aux: torch.Tensor,
     out = live & (d > window_half[None, None, :, None]).any(dim=2)
     n_near = (near & ~out).sum(dim=(1, 2))
     n_out = out.sum(dim=(1, 2))
-    _clear(grid, out)
+    _clear(pts, av, out, _EMPTY, _FAR)
     return torch.stack([n_out, n_near])
 
 

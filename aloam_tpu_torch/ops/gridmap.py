@@ -140,11 +140,6 @@ def empty(batch: int, table_size: int, bucket_cap: int,
     return GridMap(pts=pts, aux=aux)
 
 
-def _viewp(a: torch.Tensor) -> torch.Tensor:
-    """(..., 3·Bk) bucket-planar -> (..., 3, Bk) view."""
-    return a.view(a.shape[:-1] + (3, a.shape[-1] // 3))
-
-
 def _wrap32(v: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 keeping the low 32 bits (two's-complement
     wraparound, which torch's int32 arithmetic does not promise)."""
@@ -210,46 +205,42 @@ def n_valid(grid: GridMap, shard: TableShard | None = None) -> torch.Tensor:
     return _group_sum((grid._auxv()[..., 1, :] != _EMPTY).sum(), shard)
 
 
+def _window(grid: GridMap, center: torch.Tensor, half_cells: torch.Tensor,
+            evict: bool) -> torch.Tensor:
+    """``ops/evict.evict_and_count`` with both halves ``half_cells`` on
+    leaves (B, H, ·) with center (B, 3), giving (2, B) counts, or on one
+    stream's (H, ·) with center (3,), giving (2,)."""
+    one = grid.aux.dim() == 2
+    pts, aux, center = (t[None] if one else t
+                        for t in (grid.pts, grid.aux, center))
+    counts = evict_op.evict_and_count(pts, aux, center, half_cells,
+                                      half_cells, evict)
+    return counts[:, 0] if one else counts
+
+
 def count_near(grid: GridMap, center: torch.Tensor, half_cells: torch.Tensor,
                shard: TableShard | None = None) -> torch.Tensor:
-    """Live entries within center ± half_cells (cell coordinates): the
-    reference's local 5×5×3-cube map-point count that gates the mapping
-    solve (laserMapping.cpp:531-554). Grid leaves (H, ·) and center (3,)
-    give a 0-dim count; (B, H, ·) and (B, 3) one per stream (B,). Summed
-    over the shard's group."""
-    c = grid._auxv()[..., 1:4, :]                    # (..., H, 3, Bk)
-    near = (c[..., 0, :] != _EMPTY) & (
-        (c - center[..., None, :, None]).abs()
-        <= half_cells[:, None]).all(dim=-2)
-    return _group_sum(near.sum(dim=(-2, -1)), shard)
+    """Live entries within center ± half_cells (cell coordinates, int32):
+    the reference's local 5×5×3-cube map-point count that gates the
+    mapping solve (laserMapping.cpp:531-554). Grid leaves (H, ·) and
+    center (3,) give a 0-dim count; (B, H, ·) and (B, 3) one per stream
+    (B,). Summed over the shard's group."""
+    return _group_sum(_window(grid, center, half_cells, False)[1], shard)
 
 
 count_near_b = count_near   # the JAX package's batched name
 
 
-def _clear(grid: GridMap, out: torch.Tensor) -> None:
-    """Clear the slots ``out`` (..., H, Bk) in place."""
-    av = grid._auxv()
-    av[..., 0, :].masked_fill_(out, 0)
-    av[..., 1:4, :].masked_fill_(out[..., None, :], _EMPTY)
-    av[..., 4, :].masked_fill_(out, 0)
-    _viewp(grid.pts).masked_fill_(out[..., None, :], _FAR)
-
-
 def invalidate_outside(grid: GridMap, center: torch.Tensor,
                        half_cells: torch.Tensor,
                        shard: TableShard | None = None):
-    """Clear every live entry outside center ± half_cells, in place: the
-    reference's rolling-window discard (laserMapping.cpp:323-507). Grid
-    leaves (H, ·) with center (3,), or (B, H, ·) with (B, 3). Returns
-    (grid, n_cleared), n_cleared 0-dim or (B,), summed over the shard's
-    group (each rank clears its own rows)."""
-    c = grid._auxv()[..., 1:4, :]
-    out = (c[..., 0, :] != _EMPTY) & (
-        (c - center[..., None, :, None]).abs() > half_cells[:, None]).any(
-            dim=-2)
-    n_out = out.sum(dim=(-2, -1))
-    _clear(grid, out)
+    """Clear every live entry outside center ± half_cells (int32), in
+    place: the reference's rolling-window discard
+    (laserMapping.cpp:323-507). Grid leaves (H, ·) with center (3,), or
+    (B, H, ·) with (B, 3). Returns (grid, n_cleared), n_cleared 0-dim or
+    (B,), summed over the shard's group (each rank clears its own
+    rows)."""
+    n_out = _window(grid, center, half_cells, True)[0]
     return grid, _group_sum(n_out, shard)
 
 

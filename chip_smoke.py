@@ -178,11 +178,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    and instantiate ms, node count (cuGraphGetNodes), the graph pool's MiB
    and the peak memory. (e) The distorted step_b graphed over 4 of phase
    10's frames, bit-equal to phase 10's eager run, ``lm_fused_s`` inside
-   the capture. (g) Eager and graphed step_b (scans/s) and step (ms/scan)
-   in turn three times; a graphed frame's device busy time and idle
-   share under torch.profiler, the replay alone back to back, the host
-   ms to issue a frame (graphed and eager) and the peak memory. Its run
-   time is printed;
+   the capture. Its run time is printed;
 13. bench: first the bench's preset rung in this process, ``step_b`` at
    ``PRESETS["HDL-64"]``'s caps over phase 3's streams, its launches
    counted from 0 (all eight kernels must launch), its kernels held against
@@ -234,7 +230,6 @@ from __future__ import annotations
 
 import bisect
 import contextlib
-import importlib
 import json
 import math
 import os
@@ -251,6 +246,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from _torch_scenes import (KNN_CASES, MERGE_CASES,  # noqa: E402
                            SELECT_CASES, evict_table, knn_case, merge_case,
                            queries_near, segmented_reference, select_case)
+
+# the kernel table: each kernel's wrapper, plain twin, counter, in-place
+# arguments, tolerance and source, and the kernels each path launches
+from aloam_tpu_torch.ops import kernels  # noqa: E402
 
 B = 16
 N_FRAMES = 8           # bench.py's batched default
@@ -283,8 +282,6 @@ DIST_ATE_LIMIT_1, DIST_ATE_LIMIT_B = 0.12, 0.15
 # the time limit of its two worker processes
 KNN_Q, KNN_M = 4096, 36864
 WORKER_TIMEOUT_S = 420
-# phase 11 (c): the kernels whose inputs change with the table partition
-TABLE_KERNELS = ("assoc_cell", "merge_tiles", "evict_and_count")
 DIST_CACHE = os.path.join(
     CACHE_DIR, f"chip_smoke_dist_hdl64_a{N_AZIMUTH}_b{B}_f{N_FRAMES}.npz")
 DIST_SINGLE_CACHE = os.path.join(
@@ -303,74 +300,10 @@ BENCH_KEYS = {"metric", "unit", "device_kind", "ms_per_scan_single",
 PREGEN_TIMEOUT_S, BENCH_TIMEOUT_S = 240, 420
 # phase 14: the frames over which graphed and eager must be bit-equal
 DRIFT_EQUAL_FRAMES = 20
-# kernel name -> (module, kernel function, plain function, CUDA source,
-# the Pallas kernel it replaces at its pallas_call)
-KERNELS = {
-    "select_rings": ("select", "select_rings", "select_rings_plain",
-                     "aloam_tpu_torch/csrc/select.cu",
-                     "aloam_tpu/ops/pallas_select.py:141"),
-    "segmented_prefix_sums": ("voxel", "segmented_prefix_sums",
-                              "segmented_prefix_sums_plain",
-                              "aloam_tpu_torch/csrc/seg_scan.cu",
-                              "aloam_tpu/ops/pallas_voxel.py:98"),
-    "window_mins": ("odom", "window_mins", "window_mins_plain",
-                    "aloam_tpu_torch/csrc/odom_window.cu",
-                    "aloam_tpu/ops/pallas_odom.py:199"),
-    "lm_fused": ("lm", "lm_fused", "lm_fused_plain",
-                 "aloam_tpu_torch/csrc/lm.cu",
-                 "aloam_tpu/ops/pallas_lm.py:326"),
-    "assoc_cell": ("assoc", "assoc_cell", "assoc_cell_plain",
-                   "aloam_tpu_torch/csrc/assoc.cu",
-                   "aloam_tpu/ops/pallas_assoc.py:356"),
-    "merge_tiles": ("insert", "merge_rows", "merge_rows_plain",
-                    "aloam_tpu_torch/csrc/insert.cu",
-                    "aloam_tpu/ops/pallas_insert.py:167"),
-    # the table entry (gridmap.knn, the single-stream search) and the cache
-    # entry (the association API) of one kernel
-    "knn_select": ("knn", "knn_grid", "knn_grid_plain",
-                   "aloam_tpu_torch/csrc/knn.cu",
-                   "aloam_tpu/ops/pallas_knn.py:108"),
-    "knn_select_rows": ("knn", "knn_select", "knn_select_plain",
-                        "aloam_tpu_torch/csrc/knn.cu",
-                        "aloam_tpu/ops/pallas_knn.py:108"),
-    # lm_fused's launches with the s channel (the distortion path's
-    # odometry solves)
-    "lm_fused_s": ("lm", "lm_fused", "lm_fused_plain",
-                   "aloam_tpu_torch/csrc/lm.cu",
-                   "aloam_tpu/ops/pallas_lm.py:326"),
-    # the row gather of every caller (utils/batch.py:bgather in the JAX
-    # package, which leaves it to XLA: it replaces no pallas_call)
-    "bgather": ("gather", "bgather", "bgather_plain",
-                "aloam_tpu_torch/csrc/gather.cu", None),
-    # the map window's evict and census (gridmap.evict_and_count; the JAX
-    # package leaves it to XLA: it replaces no pallas_call)
-    "evict_and_count": ("evict", "evict_and_count", "evict_and_count_plain",
-                        "aloam_tpu_torch/csrc/evict.cu", None),
-}
-# each wrapper's launch counter, where it is not the module's `launches`
-COUNTERS = {"knn_select": "grid_launches", "lm_fused_s": "s_launches"}
-# kernels that update their first k arguments in place (the map tables)
-IN_PLACE = {"merge_tiles": 2, "evict_and_count": 2}
-# the kernels each path runs
-FRONT_KERNELS = ("select_rings", "segmented_prefix_sums", "window_mins",
-                 "lm_fused", "bgather")
-STEP_KERNELS = FRONT_KERNELS + ("assoc_cell", "merge_tiles",
-                                 "evict_and_count")
-SINGLE_KERNELS = FRONT_KERNELS + ("merge_tiles", "knn_select",
-                                  "evict_and_count")
-DIST_KERNELS = STEP_KERNELS + ("lm_fused_s",)
-DIST_SINGLE_KERNELS = SINGLE_KERNELS + ("lm_fused_s",)
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM3
 # bytes/s and fp32 FLOP/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-def launch_count(mods, name: str) -> int:
-    return getattr(mods[name], COUNTERS.get(name, "launches"))
-
-
-def reset_counts(mods, names=tuple(KERNELS)) -> None:
-    for name in names:
-        setattr(mods[name], COUNTERS.get(name, "launches"), 0)
 
 
 def fail(msg: str) -> None:
@@ -469,6 +402,13 @@ def make_distorted(cfg, path, seeds, speeds):
     return z["xyz"], z["mask"], z["gt"]
 
 
+def plain_run(names):
+    """A with-block in which each named kernel's wrapper is its plain
+    twin."""
+    return Patched([(kernels.module(n), kernels.KERNELS[n].wrapper,
+                     kernels.plain(n)) for n in names])
+
+
 class Patched:
     """Swap module attributes for the duration of a with-block."""
 
@@ -534,19 +474,11 @@ def to_host(out) -> dict:
             for k, v in out._asdict().items() if v is not None}
 
 
-def absdiff(got, want):
-    """|got - want| with equal entries (inf included) and NaN in both at
-    0 (``aloam_tpu_torch.ops.tolerance.absdiff``)."""
-    from aloam_tpu_torch.ops import tolerance
-    return tolerance.absdiff(got, want)
-
-
 def compare(name, got, want, kind=None, inputs=None):
     """max_abs_err of a kernel against its plain version, failing past the
-    kernel's tolerance (``aloam_tpu_torch/ops/tolerance.py`` states each
+    kernel's tolerance (``aloam_tpu_torch/ops/kernels.py`` states each
     one; the seg scan's reads its ``inputs``)."""
-    from aloam_tpu_torch.ops import tolerance
-    ok, err = tolerance.agree(name, got, want, kind, inputs)
+    ok, err = kernels.agree(name, got, want, kind, inputs)
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version "
              f"(max abs err {err:.6g})")
@@ -684,15 +616,13 @@ def bound_of(nbytes: int, flops: int):
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def record_inputs(mods, names, drive):
+def record_inputs(names, drive):
     """Run ``drive()`` with each named kernel's wrapper recording its
     inputs, one record per distinct input signature
-    (``aloam_tpu_torch.bench.record_inputs``). Returns {(name,
-    signature): (args, kw)}."""
+    (``kernels.record_inputs``), failing unless every one was called.
+    Returns {(name, signature): (args, kw)}."""
     import torch
-    from aloam_tpu_torch import bench
-    recorded = bench.record_inputs(
-        {n: (mods[n], KERNELS[n][1]) for n in names}, drive)
+    recorded = kernels.record_inputs(names, drive)
     torch.cuda.synchronize()
     missing = set(names) - {name for name, _ in recorded}
     if missing:
@@ -700,27 +630,13 @@ def record_inputs(mods, names, drive):
     return recorded
 
 
-def run_kernel(name, fn, args, kw):
-    """``fn`` on the inputs. A kernel that updates its first
-    ``IN_PLACE[name]`` arguments in place gets clones of them, which come
-    back ahead of its outputs."""
-    k = IN_PLACE.get(name, 0)
-    if not k:
-        return fn(*args, **kw)
-    own = tuple(a.clone() for a in args[:k])
-    return own + tuple(fn(*own, *args[k:], **kw))
-
-
 def fresh_calls(name, fn, args, kw, n: int):
     """A call of ``fn`` on the inputs for ``cuda_ms``, ``n`` times. A
     kernel that updates arguments in place gets a fresh clone of them on
     every call, all made before the clock starts, so that no launch works
     on a table an earlier launch updated."""
-    k = IN_PLACE.get(name, 0)
-    if not k:
-        return lambda: fn(*args, **kw)
-    pool = iter([tuple(a.clone() for a in args[:k]) for _ in range(n)])
-    return lambda: fn(*next(pool), *args[k:], **kw)
+    pool = iter([kernels.fresh(name, args) for _ in range(n)])
+    return lambda: fn(*next(pool), **kw)
 
 
 def check_recorded(mods, recorded, results, card):
@@ -730,10 +646,9 @@ def check_recorded(mods, recorded, results, card):
     import torch
     for (name, _), (args, kw) in sorted(recorded.items(),
                                         key=lambda kv: str(kv[0])):
-        mod, spec = mods[name], KERNELS[name]
-        kern, plain = getattr(mod, spec[1]), getattr(mod, spec[2])
-        got = run_kernel(name, kern, args, kw)
-        want = run_kernel(name, plain, args, kw)
+        kern, plain = kernels.wrapper(name), kernels.plain(name)
+        got = kernels.run(name, kern, args, kw)
+        want = kernels.run(name, plain, args, kw)
         torch.cuda.synchronize()
         extra = [a for a in args if isinstance(a, (str, bool, int))]
         err = compare(name, got, want,
@@ -775,7 +690,7 @@ def check_kernels(pipeline, mods, cfg, frames, device, card):
     st = pipeline.init_state(cfg, B, device)
     st, _ = pipeline.step_b(st, *frames[0], cfg)
     recorded = record_inputs(
-        mods, STEP_KERNELS, lambda: pipeline.step_b(st, *frames[1], cfg))
+        kernels.STEP_B, lambda: pipeline.step_b(st, *frames[1], cfg))
     del st
     results = {}
     check_recorded(mods, recorded, results, card)
@@ -802,7 +717,7 @@ def check_single_kernels(pipeline, mods, cfg_b, map_state, odom_state,
     st = pipeline.init_state(cfg_1, 1, device)
     st, _ = pipeline.step(st, *single[0], cfg_1)
     recorded = record_inputs(
-        mods, SINGLE_KERNELS, lambda: pipeline.step(st, *single[1], cfg_1))
+        kernels.STEP, lambda: pipeline.step(st, *single[1], cfg_1))
     del st
 
     def assoc_b():
@@ -820,9 +735,9 @@ def check_single_kernels(pipeline, mods, cfg_b, map_state, odom_state,
             if int(f.mask.sum()) == 0:
                 fail(f"{fn.__name__}: no factors on the B={B} map")
 
-    reset_counts(mods, ("knn_select_rows",))
-    recorded.update(record_inputs(mods, ("knn_select_rows",), assoc_b))
-    rows_launches = launch_count(mods, "knn_select_rows")
+    kernels.reset(("knn_select_rows",))
+    recorded.update(record_inputs(("knn_select_rows",), assoc_b))
+    rows_launches = kernels.launches("knn_select_rows")
     say(f"[kernel] the B={B} association API launched knn_select_rows "
         f"{rows_launches} times")
     if rows_launches < 1:
@@ -994,11 +909,11 @@ def check_adversarial_assoc(mods, device, results, card):
                       cspan=cspan)
             got = mod.assoc_cell(*args, **kw)
             want = mod.assoc_cell_plain(*args, **kw)
-            worst = max(worst, absdiff(got, want).max().item())
+            worst = max(worst, kernels.absdiff(got, want).max().item())
             if not torch.equal(got, want):
                 fail(f"assoc_cell {kind} {label}: kernel differs from its "
                      f"plain version (max abs err "
-                     f"{absdiff(got, want).max().item():.6g})")
+                     f"{kernels.absdiff(got, want).max().item():.6g})")
             okc = 4 if kind == "surf" else 6
             live = int((want[:, 7 if kind == "corner" else 5] < 1.0).sum())
             say(f"[adversarial] assoc_cell {kind} {label}: {n} queries, "
@@ -1200,8 +1115,8 @@ def check_adversarial_merge(mods, device, card):
                                 cap_p=cap_p, bk=bk)
             args = tuple(torch.from_numpy(a).to(device) for a in arrays)
             args += (2.0, 0.4)
-            got = run_kernel("merge_tiles", mod.merge_rows, args, {})
-            want = run_kernel("merge_tiles", mod.merge_rows_plain, args, {})
+            got = kernels.run("merge_tiles", mod.merge_rows, args, {})
+            want = kernels.run("merge_tiles", mod.merge_rows_plain, args, {})
             compare("merge_tiles", got, want)
             changed = int((got[0] != args[0]).any(dim=-1).sum())
             say(f"[adversarial] merge_tiles {case} Bk {bk} P {cap_p}: "
@@ -1704,16 +1619,15 @@ def ring_seg_spy(mods, tag):
 def run_front(pipeline, mods, cfg, frames, device, card):
     """Phase 5: front_step_b with the kernels and with the plain
     versions."""
-    reset_counts(mods, FRONT_KERNELS)
+    kernels.reset(kernels.FRONT)
     with ring_seg_spy(mods, "front"):
         k_outs, k_ms, _ = run_frames(pipeline.front_step_b, pipeline, cfg,
                                      frames, device)
-    launches = {name: launch_count(mods, name) for name in FRONT_KERNELS}
+    launches = {name: kernels.launches(name) for name in kernels.FRONT}
     say(f"[front] kernel launches over {len(frames)} frames: {launches}")
     if min(launches.values()) < 1:
         fail(f"a kernel of the front path was never launched: {launches}")
-    with Patched([(mods[n], KERNELS[n][1], getattr(mods[n], KERNELS[n][2]))
-                  for n in FRONT_KERNELS]):
+    with plain_run(kernels.FRONT):
         p_outs, p_ms, _ = run_frames(pipeline.front_step_b, pipeline, cfg,
                                      frames, device)
     cols = [lambda o, c=c: o["metrics"][c]
@@ -1818,7 +1732,7 @@ def stage_busy(step, pipeline, cfg, frames, device, batch, staged=True):
 def say_busy(tag, pipeline, cfg, frames, device, batch, card):
     """Print the profiled device busy time by span and by operation;
     returns the busy ms per frame."""
-    per_stage, busy, wall, kernels, per_op = stage_busy(
+    per_stage, busy, wall, n_ops, per_op = stage_busy(
         pipeline.step_b if batch > 1 else pipeline.step, pipeline, cfg,
         frames, device, batch)
     top = sorted(per_op.items(), key=lambda kv: -kv[1])[:10]
@@ -1826,7 +1740,7 @@ def say_busy(tag, pipeline, cfg, frames, device, batch, card):
         f"of frames 1-{len(frames) - 1}: "
         + ", ".join(f"{k} {v:.3f}" for k, v in per_stage.items())
         + f"; the device busy {busy:.3f} of {wall:.2f} ms per frame "
-        f"(idle {100 * (1 - busy / wall):.1f}%), {kernels:.0f} device "
+        f"(idle {100 * (1 - busy / wall):.1f}%), {n_ops:.0f} device "
         f"operations per frame besides the stamps ({card})")
     say(f"[{tag}] device ms per frame by operation, the ten largest: "
         + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top))
@@ -1909,13 +1823,13 @@ def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
         out = bgather(x, idx)
         moved[0] += out.numel() > 0
         return out
-    reset_counts(mods)
+    kernels.reset()
     torch.cuda.reset_peak_memory_stats(device)
     with ring_seg_spy(mods, tag), Patched([(gather, "bgather", counted)]):
         k_outs, k_ms, st = run_frames(step, pipeline, cfg, frames, device,
                                       batch)
     peak = torch.cuda.max_memory_allocated(device)
-    launches = {name: launch_count(mods, name) for name in KERNELS}
+    launches = kernels.counts()
     say(f"[{tag}] kernel launches over {len(frames)} frames: {launches}")
     if min(launches[n] for n in names) < 1:
         fail(f"a kernel of the {tag} path was never launched: {launches}")
@@ -1924,11 +1838,10 @@ def kernel_and_plain(tag, step, pipeline, mods, names, cfg, frames, device,
              f"times for {moved[0]} bgather calls that moved rows")
     say(f"[{tag}] the row gather: {launches['bgather'] / len(frames):g} "
         f"launches a frame, one for each bgather call that moved rows")
-    with Patched([(mods[n], spec[1], getattr(mods[n], spec[2]))
-                  for n, spec in KERNELS.items()]):
+    with plain_run(kernels.KERNELS):
         p_outs, p_ms, _ = run_frames(step, pipeline, cfg, frames, device,
                                      batch)
-    if any(launch_count(mods, n) != launches[n] for n in KERNELS):
+    if kernels.counts() != launches:
         fail(f"the plain {tag} run launched a kernel")
     return k_outs, k_ms, p_outs, p_ms, launches, st, peak
 
@@ -1940,7 +1853,7 @@ def run_step(pipeline, mods, cfg, frames, gt, device, card):
     from aloam_tpu_torch.pipeline import METRIC_NAMES
 
     k_outs, k_ms, p_outs, p_ms, launches, st, peak = kernel_and_plain(
-        "step", pipeline.step_b, pipeline, mods, STEP_KERNELS, cfg, frames,
+        "step", pipeline.step_b, pipeline, mods, kernels.STEP_B, cfg, frames,
         device, B)
     pose_agreement("step", k_outs, p_outs, k_ms, p_ms, B)
     sk, sp = float(np.mean(k_ms[1:])), float(np.mean(p_ms[1:]))
@@ -1969,7 +1882,7 @@ def run_single(pipeline, mods, cfg, frames, gt, device, card):
     final map tables (corner, surf)."""
     from aloam_tpu_torch.pipeline import METRIC_NAMES
     k_outs, k_ms, p_outs, p_ms, launches, st, peak = kernel_and_plain(
-        "single", pipeline.step, pipeline, mods, SINGLE_KERNELS, cfg, frames,
+        "single", pipeline.step, pipeline, mods, kernels.STEP, cfg, frames,
         device, 1)
     pose_agreement("single", k_outs, p_outs, k_ms, p_ms, 1)
     sk, sp = float(np.mean(k_ms[1:])), float(np.mean(p_ms[1:]))
@@ -2045,7 +1958,7 @@ def check_distorted_kernel(pipeline, mods, cfg_b, frames, cfg_1, single,
         st = pipeline.init_state(cfg, batch, device)
         st, _ = step(st, *data[0], cfg)
         recorded = record_inputs(
-            mods, ("lm_fused",), lambda: step(st, *data[1], cfg))
+            ("lm_fused",), lambda: step(st, *data[1], cfg))
         del st
         got = {("lm_fused_s", sig): v for (_, sig), v in recorded.items()
                if v[0][0].shape[1] == 11}
@@ -2153,9 +2066,9 @@ def run_distortion(pipeline, mods, cfg_b, cfg_1, device, results, card):
     for tag, step, cfg, cfg_rigid, data, truth, batch, names, \
             ate_limit in (
                 ("dist_step", pipeline.step_b, dcfg_b, cfg_b, frames, gt, B,
-                 DIST_KERNELS, DIST_ATE_LIMIT_B),
+                 kernels.STEP_B + ("lm_fused_s",), DIST_ATE_LIMIT_B),
                 ("dist_single", pipeline.step, dcfg_1, cfg_1, single, sgt,
-                 1, DIST_SINGLE_KERNELS, DIST_ATE_LIMIT_1)):
+                 1, kernels.STEP + ("lm_fused_s",), DIST_ATE_LIMIT_1)):
         k_outs, k_ms, p_outs, p_ms, got, st, peak = kernel_and_plain(
             tag, step, pipeline, mods, names, cfg, data, device, batch)
         del st            # its map tables must not count in the next peak
@@ -2282,9 +2195,9 @@ def run_parallel(pipeline, mods, cfg, frames, outs_b, tables_b, ms_b,
         if (gm.captures, gm.replays, len(seen)) != (1, N_FRAMES, 1):
             fail(f"[parallel] batched_step_fn: {gm.captures} captures, "
                  f"{gm.replays} replays")
-        per_frame = {n: launches_b[n] // N_FRAMES for n in STEP_KERNELS}
+        per_frame = {n: launches_b[n] // N_FRAMES for n in kernels.STEP_B}
         check_capture("[parallel] batched_step_fn", seen[0], per_frame,
-                      STEP_KERNELS)
+                      kernels.STEP_B)
         say(f"[parallel] one NCCL rank, mesh (1, 1): batched_step_fn "
             f"captured once ({seen[0]['nodes']} nodes; the capture "
             f"launched {seen[0]['launches']}) and replayed {gm.replays} "
@@ -2320,7 +2233,7 @@ def run_parallel(pipeline, mods, cfg, frames, outs_b, tables_b, ms_b,
                  f"{gm.replays} replays, {len(collectives)} collectives "
                  f"captured")
         check_capture("[parallel] TableShard step", seen[0], per_frame,
-                      STEP_KERNELS)
+                      kernels.STEP_B)
         say(f"[parallel] one NCCL rank: step_b with TableShard(the group "
             f"of one, 0, 1) captured once with {len(collectives)} "
             f"all_reduces in the graph ({sum(collectives) / 1e6:.1f} MB a "
@@ -2414,8 +2327,8 @@ def check_repeatable(mods, recorded, tag):
     def bits(t):
         return t.contiguous().view(torch.uint8) if torch.is_tensor(t) else t
     for (name, _), (args, kw) in recorded.items():
-        kern = getattr(mods[name], KERNELS[name][1])
-        a, b = (run_kernel(name, kern, args, kw) for _ in range(2))
+        kern = kernels.wrapper(name)
+        a, b = (kernels.run(name, kern, args, kw) for _ in range(2))
         a, b = ((x,) if torch.is_tensor(x) else tuple(x) for x in (a, b))
         if not all(torch.equal(bits(x), bits(y)) if torch.is_tensor(x)
                    else x == y for x, y in zip(a, b)):
@@ -2450,8 +2363,7 @@ def parallel_worker(tmp: str) -> None:
 
     size, rank, device, card = start_worker(tmp)
     try:
-        mods = {name: importlib.import_module(f"aloam_tpu_torch.ops.{spec[0]}")
-                for name, spec in KERNELS.items()}
+        mods = {n: kernels.module(n) for n in kernels.KERNELS}
         cfg = bench_cfg()
         xyz, mask, _ = make_streams(cfg)
         local, off = distributed.process_local_batch(B)
@@ -2464,7 +2376,7 @@ def parallel_worker(tmp: str) -> None:
         # times eager frames (on a (2, 1) mesh, with no collective in the
         # step, batched_step_fn itself would capture)
         f = batched_step_fn(cfg, mesh).step
-        reset_counts(mods)
+        kernels.reset()
         torch.cuda.reset_peak_memory_stats(device)
         dist.barrier()
         st = pipeline.init_state(cfg, local, device)
@@ -2478,7 +2390,7 @@ def parallel_worker(tmp: str) -> None:
             for k in POSE_KEYS:
                 arrays[f"sharded.{k}_{fr}"] = getattr(out, k).cpu().numpy()
         peak = torch.cuda.max_memory_allocated(device)
-        launches = {n: launch_count(mods, n) for n in STEP_KERNELS}
+        launches = {n: kernels.launches(n) for n in kernels.STEP_B}
         if min(launches.values()) < 1:
             fail(f"[parallel] rank {rank}: a kernel was never launched: "
                  f"{launches}")
@@ -2520,7 +2432,7 @@ def parallel_worker(tmp: str) -> None:
         if rank == 0:
             st = pipeline.init_state(cfg, local, device)
             st, _ = f(st, *frames[0])
-            recorded = record_inputs(mods, STEP_KERNELS,
+            recorded = record_inputs(kernels.STEP_B,
                                      lambda: f(st, *frames[1]))
             del st
             check_recorded(mods, recorded, {}, card)
@@ -2682,8 +2594,7 @@ def table_worker(tmp: str, backend: str) -> None:
     size, rank, device, card = start_worker(tmp, backend)
     tag = f"[tables {backend} x{size}]"
     try:
-        mods = {name: importlib.import_module(f"aloam_tpu_torch.ops.{spec[0]}")
-                for name, spec in KERNELS.items()}
+        mods = {n: kernels.module(n) for n in kernels.KERNELS}
         cfg = bench_cfg()
         xyz, mask, _ = make_streams(cfg)
         frames = [(torch.from_numpy(xyz[f]).to(device),
@@ -2704,7 +2615,7 @@ def table_worker(tmp: str, backend: str) -> None:
                 fail(f"{tag} rank {rank}: {e}")
             return st, part, whole
 
-        reset_counts(mods)
+        kernels.reset()
         torch.cuda.reset_peak_memory_stats(device)
         gm.captures = gm.replays = 0
         seen = []
@@ -2721,7 +2632,7 @@ def table_worker(tmp: str, backend: str) -> None:
                 for k in POSE_KEYS:
                     arrays[f"{k}_{fr}"] = getattr(out, k).cpu().numpy()
         peak = torch.cuda.max_memory_allocated(device)
-        launches = {n: launch_count(mods, n) for n in STEP_KERNELS}
+        launches = {n: kernels.launches(n) for n in kernels.STEP_B}
         if min(launches.values()) < 1:
             fail(f"{tag} rank {rank}: a kernel was never launched: "
                  f"{launches}")
@@ -2730,7 +2641,7 @@ def table_worker(tmp: str, backend: str) -> None:
             fail(f"{tag} rank {rank}: {graphs[0]} captures, {graphs[1]} "
                  f"replays ({backend})")
         in_graph = seen[0]["launches"] if seen else {}
-        if f.capture and min(in_graph[n] for n in STEP_KERNELS) < 1:
+        if f.capture and min(in_graph[n] for n in kernels.STEP_B) < 1:
             fail(f"{tag} rank {rank}: the capture launched {in_graph}")
         try:
             dryrun.check_partition(st, cfg, mesh, B)
@@ -2824,13 +2735,15 @@ def table_worker(tmp: str, backend: str) -> None:
         del st
         n_fr = len(frames)
 
-        # frame 1's merge_rows and assoc_cell inputs on rank 0; both ranks
-        # drive the step, which exchanges rows
+        # frame 1's inputs on rank 0 of step_b's mapping kernels, whose
+        # inputs change with the table partition; both ranks drive the
+        # step, which exchanges rows
         st, _, _ = fresh()
         st, _ = eager(st, *frames[0])
         if rank == 0:
-            recorded = record_inputs(mods, TABLE_KERNELS,
-                                     lambda: eager(st, *frames[1]))
+            recorded = record_inputs(
+                [n for n in kernels.STEP_B if n not in kernels.FRONT],
+                lambda: eager(st, *frames[1]))
         else:
             eager(st, *frames[1])
         del st
@@ -2910,11 +2823,11 @@ def graph_spy(mods, seen: list):
     body, capture = gm.StepGraph._body, gm.StepGraph._capture
 
     def spy_body(self, slot, frame0):
-        before = {n: launch_count(mods, n) for n in KERNELS}
+        before = kernels.counts()
         out = body(self, slot, frame0)
         if torch.cuda.is_current_stream_capturing():
-            seen.append({"launches": {n: launch_count(mods, n) - before[n]
-                                      for n in KERNELS}})
+            seen.append({"launches": {n: kernels.launches(n) - before[n]
+                                      for n in kernels.KERNELS}})
         return out
 
     def spy_capture(self, slot, frame0, pattern):
@@ -2986,60 +2899,6 @@ def check_capture(tag, rec, want, names) -> None:
              f"{per}")
 
 
-def graph_busy(fn, pipeline, cfg, data, device, batch):
-    """Frames 1.. of a graphed run under torch.profiler (the graph
-    captured on frame 0): (device busy ms a frame, wall ms a frame under
-    the profiler, device operations a frame)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    st = pipeline.init_state(cfg, batch, device)
-    st, _ = fn(st, *data[0])
-    torch.cuda.synchronize()
-    n = len(data) - 1
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for xyz, mask in data[1:]:
-            st, _ = fn(st, xyz, mask)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    cuda = torch.autograd.DeviceType.CUDA
-    durs = [ev.time_range.elapsed_us() for ev in prof.events()
-            if ev.device_type == cuda]
-    return sum(durs) / 1e3 / n, wall, len(durs) / n
-
-
-def frame_ms(fn, pipeline, cfg, data, device, batch) -> float:
-    """Mean host ms of frames 1.. of ``fn`` from a fresh state, a device
-    synchronize on both sides of each frame (the [step] clock)."""
-    import torch
-    st = pipeline.init_state(cfg, batch, device)
-    ms = []
-    for xyz, mask in data:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, _ = fn(st, xyz, mask)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    return float(np.mean(ms[1:]))
-
-
-def issue_ms(fn, pipeline, cfg, data, device, batch) -> float:
-    """Mean host ms to issue frames 1.. of ``fn`` (the call returns before
-    the device has run them; a synchronize between frames)."""
-    import torch
-    st = pipeline.init_state(cfg, batch, device)
-    st, _ = fn(st, *data[0])
-    ms = []
-    for xyz, mask in data[1:]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, _ = fn(st, xyz, mask)
-        ms.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    return float(np.mean(ms))
-
-
 def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
               outs_1, tables_1, dist, device, card):
     """Phase 12: the compiled step, ``graph.StepGraph`` behind
@@ -3058,11 +2917,8 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
     ``run_sequence(scan=True)`` over the same 8 frames: one graph of 8
     frames, one replay, bit-equal to (c); its capture and instantiate
     ms, node count and peak memory. (e) The distorted step_b graphed over
-    4 of phase 10's frames, bit-equal to phase 10's eager run. (g) Eager
-    and graphed step_b and step timed in turn three times; the graphed
-    frame's device busy time under torch.profiler, the replay alone and
-    the host time to issue a frame. ((f), the CLI through the graphed
-    step, is phase 9.)"""
+    4 of phase 10's frames, bit-equal to phase 10's eager run. ((f), the
+    CLI through the graphed step, is phase 9.)"""
     import torch
     from aloam_tpu_torch import graph as gm
     from aloam_tpu_torch import parallel
@@ -3077,7 +2933,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
         st = pipeline.init_state(c, batch, device)
         st, _ = step(st, *data[0], c)
         torch.cuda.synchronize()
-        reset_counts(mods)
+        kernels.reset()
         torch.cuda.reset_peak_memory_stats(device)
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -3089,7 +2945,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         peak_1 = torch.cuda.max_memory_allocated(device)
-        per_frame[tag] = {n: launch_count(mods, n) for n in KERNELS}
+        per_frame[tag] = kernels.counts()
         del st
     say(f"[graph] (a) one eager frame of step_b (B={B}) and of step under "
         f"set_sync_debug_mode('error'): no host synchronization; launches "
@@ -3106,7 +2962,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
     del st
     if (gm.captures, gm.replays, len(seen)) != (1, N_FRAMES, 1):
         fail(f"[graph] step_b: {gm.captures} captures, {gm.replays} replays")
-    check_capture("step_b", seen[0], per_frame["step_b"], STEP_KERNELS)
+    check_capture("step_b", seen[0], per_frame["step_b"], kernels.STEP_B)
     rec = seen[0]
     say(f"[graph] (b) batched_step_jit over {B} streams x {N_FRAMES} frames: "
         f"one capture ({rec['captured'].capture_ms:.1f} ms, instantiate "
@@ -3123,7 +2979,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
                                cfg_1, single, device, 1)
     same_outputs("step", outs_c, outs_1)
     same_tables("[graph] step", st_c.map, tables_1)
-    check_capture("step", seen[0], per_frame["step"], SINGLE_KERNELS)
+    check_capture("step", seen[0], per_frame["step"], kernels.STEP)
     rec = seen[0]
     c2 = cfg_1.replace(mapping_skip_frame=2)
     want2 = run_frames(pipeline.step, pipeline, c2, single[:4], device, 1)
@@ -3165,7 +3021,7 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
     same_tables("[graph] run_sequence(scan=True)", st_d.map,
                 (st_c.map.corner, st_c.map.surf))
     check_capture("run_sequence(scan=True)", seen[0], per_frame["step"],
-                  SINGLE_KERNELS)
+                  kernels.STEP)
     rec = seen[0]
     del st_d, st_c, outs_c
     say(f"[graph] (d) run_sequence(scan=True) over {N_FRAMES} frames: one "
@@ -3190,46 +3046,6 @@ def run_graph(pipeline, mods, cfg, frames, outs_b, tables_b, cfg_1, single,
         f"4 frames: bit-equal to [dist_step]; the capture launched "
         f"{seen[0]['launches']} ({seen[0]['nodes']} nodes)")
 
-    # (g) eager against graphed, in turn, three times
-    runs = {
-        "step_b eager": (lambda s, x, m: pipeline.step_b(s, x, m, cfg), cfg,
-                         frames, B),
-        "step_b graph": (parallel.batched_step_jit(cfg), cfg, frames, B),
-        "step eager": (lambda s, x, m: pipeline.step(s, x, m, cfg_1), cfg_1,
-                       single, 1),
-        "step graph": (pipeline.make_step_fn(cfg_1), cfg_1, single, 1)}
-    times = {k: [] for k in runs}
-    for _ in range(3):
-        for k, (fn, c, data, batch) in runs.items():
-            times[k].append(frame_ms(fn, pipeline, c, data, device, batch))
-    rate = {k: ([B * 1e3 / t for t in v] if k.startswith("step_b") else v)
-            for k, v in times.items()}
-    say("[graph] (g) frames 1-7, in turn three times: "
-        + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v)
-                    + (" scans/s" if k.startswith("step_b") else " ms/scan")
-                    for k, v in rate.items()) + f" ({card})")
-    for k in ("step_b graph", "step graph"):
-        fn, c, data, batch = runs[k]
-        torch.cuda.reset_peak_memory_stats(device)
-        busy, wall, ops = graph_busy(fn, pipeline, c, data, device, batch)
-        peak = torch.cuda.max_memory_allocated(device)
-        idle = f"idle {100 * (1 - busy / wall):.1f}%" if busy > 0 \
-            else "the profiler saw no device time: not measured"
-        issue = issue_ms(fn, pipeline, c, data, device, batch)
-        eager = issue_ms(runs[k.replace("graph", "eager")][0], pipeline, c,
-                         data, device, batch)
-        # the replay alone, back to back (each advances the static state)
-        (slot,) = fn.slots.values()
-        (cap,) = slot.graphs.values()
-        replay = cuda_ms(cap.graph.replay, 10)
-        say(f"[graph] (g) {k}: device busy {busy:.3f} of {wall:.2f} ms a "
-            f"frame under torch.profiler ({idle}), {ops:.0f} device "
-            f"operations a frame; the replay alone {replay:.3f} ms back to "
-            f"back; the host issues a frame in {issue:.3f} ms (eager "
-            f"{eager:.3f}); peak device memory {peak / 2 ** 30:.3f} GiB "
-            f"with the graph's pool, reserved "
-            f"{torch.cuda.memory_reserved(device) / 2 ** 30:.3f} GiB "
-            f"({card})")
     say(f"[graph] phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3269,7 +3085,7 @@ def check_preset_rung(pipeline, mods, cfg, frames, gt, device, results,
     pframes = [(torch.cat([x, x.new_zeros(B, pad, 3)], 1),
                 torch.cat([m, m.new_zeros(B, pad)], 1)) for x, m in frames]
     t0 = time.perf_counter()
-    reset_counts(mods)
+    kernels.reset()
     st = pipeline.init_state(pcfg, B, device)
     st, out = pipeline.step_b(st, *pframes[0], pcfg)
     outs, box = [to_host(out)], {}
@@ -3277,12 +3093,12 @@ def check_preset_rung(pipeline, mods, cfg, frames, gt, device, results,
     def frame1():
         box["st"], box["out"] = pipeline.step_b(st, *pframes[1], pcfg)
 
-    recorded = record_inputs(mods, STEP_KERNELS, frame1)
+    recorded = record_inputs(kernels.STEP_B, frame1)
     st, outs = box["st"], outs + [to_host(box["out"])]
     for xyz, mask in pframes[2:]:
         st, out = pipeline.step_b(st, xyz, mask, pcfg)
         outs.append(to_host(out))
-    launches = {n: launch_count(mods, n) for n in STEP_KERNELS}
+    launches = {n: kernels.launches(n) for n in kernels.STEP_B}
     say(f"[preset] step_b at PRESETS['HDL-64'] (ring_cap {pcfg.ring_cap}, "
         f"n_raw {pcfg.n_raw}, less_flat_cap {pcfg.less_flat_cap}, "
         f"assoc_cspan {pcfg.assoc_cspan}), B={B}: kernel launches over "
@@ -3309,13 +3125,13 @@ def run_bench(kind: str, card: str) -> dict:
     say(f"[bench] scenes ready ({time.perf_counter() - t0:.1f} s)")
     lines = run_module("aloam_tpu_torch.bench", [], env,
                        BENCH_TIMEOUT_S).strip().splitlines()
-    launches, runs = dict.fromkeys(KERNELS, 0), 0
+    launches, runs = dict.fromkeys(kernels.KERNELS, 0), 0
     for line in lines[:-1]:
         say(line)
         if " kernel launches {" not in line:
             continue
         counts = json.loads(line.split(" kernel launches ", 1)[1])
-        need = SINGLE_KERNELS if "one stream" in line else STEP_KERNELS
+        need = kernels.STEP if "one stream" in line else kernels.STEP_B
         if min(counts[n] for n in need) < 1:
             fail(f"bench: a kernel of its path was never launched: {line}")
         runs += 1
@@ -3343,13 +3159,13 @@ def drift_kernels(pipeline, mods, cfg, frames, device, results, card):
     the inputs frame 1 of the drift scene gives them (16 rings, ring_cap
     512: launch plans no other phase reaches), as phase 4 does."""
     for tag, step, names, batched in (
-            ("step", pipeline.step, SINGLE_KERNELS, False),
-            ("step_b", pipeline.step_b, STEP_KERNELS, True)):
+            ("step", pipeline.step, kernels.STEP, False),
+            ("step_b", pipeline.step_b, kernels.STEP_B, True)):
         data = [(x[None], m[None]) if batched else (x, m)
                 for x, m in frames[:2]]
         st = pipeline.init_state(cfg, 1, device)
         st, _ = step(st, *data[0], cfg)
-        recorded = record_inputs(mods, names,
+        recorded = record_inputs(names,
                                  lambda: step(st, *data[1], cfg))
         del st
         say(f"[drift] (b) {tag}'s kernels at the drift scene's frame-1 "
@@ -3386,7 +3202,7 @@ def drift_path(mods, tag, names, scans, traj, ref, device, card):
     from aloam_tpu_torch import graph as gm
     batched = tag == "step_b"
     seen = []
-    reset_counts(mods)
+    kernels.reset()
     gm.captures = gm.replays = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -3395,7 +3211,7 @@ def drift_path(mods, tag, names, scans, traj, ref, device, card):
         res = drift.run(drift.DRIFT_CFG, scans, device, batched=batched)
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
-    launches = {n: launch_count(mods, n) for n in KERNELS}
+    launches = kernels.counts()
     if min(launches[n] for n in names) < 1:
         fail(f"[drift] a kernel of the {tag} path was never launched: "
              f"{launches}")
@@ -3436,7 +3252,7 @@ def drift_path(mods, tag, names, scans, traj, ref, device, card):
     fails = drift.gates(s)
     if fails:
         fail(f"[drift] {tag}: " + "; ".join(fails))
-    return {n: launches[n] for n in KERNELS}
+    return {n: launches[n] for n in kernels.KERNELS}
 
 
 def run_drift(pipeline, mods, device, results, card) -> dict:
@@ -3466,8 +3282,8 @@ def run_drift(pipeline, mods, device, results, card) -> dict:
     del frames
     by_path = {f"drift_{tag}": drift_path(mods, tag, names, scans, traj,
                                           ref, device, card)
-               for tag, names in (("step", SINGLE_KERNELS),
-                                  ("step_b", STEP_KERNELS))}
+               for tag, names in (("step", kernels.STEP),
+                                  ("step_b", kernels.STEP_B))}
     took = time.perf_counter() - t_phase
     say(f"[drift] phase 14 took {took:.1f} s ({card})")
     return by_path
@@ -3518,8 +3334,7 @@ def main() -> None:
         f"{cfg.map_query_chunk} ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 4-6. kernels, the front half, the whole step ---------------------
-    mods = {name: importlib.import_module(f"aloam_tpu_torch.ops.{spec[0]}")
-            for name, spec in KERNELS.items()}
+    mods = {n: kernels.module(n) for n in kernels.KERNELS}
     results = check_kernels(pipeline, mods, cfg, frames, device, card)
     check_adversarial(mods, device, results, card)
     check_adversarial_assoc(mods, device, results, card)
@@ -3578,8 +3393,8 @@ def main() -> None:
     # ---- 14. the long-horizon run -----------------------------------------
     by_path.update(run_drift(pipeline, mods, device, results, card))
 
-    kernels = [dict(name=name, route="cuda", source=spec[3],
-                    replaces=spec[4], launches=launches[name],
+    entries = [dict(name=name, route="cuda", source=spec.source,
+                    replaces=spec.replaces, launches=launches[name],
                     max_abs_err=results[name]["max_abs_err"],
                     ms=results[name]["ms"],
                     device_ms=results[name]["device_ms"],
@@ -3591,8 +3406,8 @@ def main() -> None:
                     library_ms=results[name].get("library_ms"),
                     launches_by_path={p: n.get(name, 0)
                                       for p, n in by_path.items()})
-               for name, spec in KERNELS.items()]
-    print(json.dumps({"kernels": kernels}))
+               for name, spec in kernels.KERNELS.items()]
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

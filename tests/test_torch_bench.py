@@ -25,6 +25,7 @@ import torch
 from aloam_tpu import config as jconfig
 from aloam_tpu_torch import bench as pb
 from aloam_tpu_torch.config import PRESETS
+from aloam_tpu_torch.ops import kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -384,6 +385,7 @@ def _plus(fn, eps=1e-3, at=None):
 
 
 def _merge_plus(plain):
+    """plain, then the tables' points moved by 1e-3 in place."""
     def perturbed(pts, aux, *rest):
         stats = plain(pts, aux, *rest)
         pts.add_(1e-3)
@@ -391,23 +393,41 @@ def _merge_plus(plain):
     return perturbed
 
 
+def _float_plus(plain):
+    """plain's output plus 1e-3 where it is floating point (an index
+    moved off an integer would break the step before its check)."""
+    def perturbed(*a, **kw):
+        out = plain(*a, **kw)
+        return out + 1e-3 if out.is_floating_point() else out
+    return perturbed
+
+
+# each kernel's perturbed side, made from its plain version
 PERTURBED = {
-    "knn_select_rows": ("knn", "knn_select",
-                        lambda m: _plus(m.knn_select_plain, at=0)),
-    "knn_select": ("knn", "knn_grid", lambda m: _plus(m.knn_grid_plain, at=0)),
-    "assoc_cell": ("assoc", "assoc_cell",
-                   lambda m: _plus(m.assoc_cell_plain)),
-    "merge_tiles": ("insert", "merge_rows",
-                    lambda m: _merge_plus(m.merge_rows_plain)),
-    "segmented_prefix_sums": ("voxel", "segmented_prefix_sums",
-                              lambda m: _plus(m.segmented_prefix_sums_plain)),
-    "window_mins": ("odom", "window_mins",
-                    lambda m: _plus(m.window_mins_plain, at=0)),
-    "lm_fused": ("lm", "lm_fused", lambda m: _plus(m.lm_fused_plain)),
+    "knn_select_rows": lambda plain: _plus(plain, at=0),
+    "knn_select": lambda plain: _plus(plain, at=0),
+    "assoc_cell": _plus,
+    "merge_tiles": _merge_plus,
+    "segmented_prefix_sums": _plus,
+    "window_mins": lambda plain: _plus(plain, at=0),
+    "lm_fused": _plus,
     # labels are integers: one label off
-    "select_rings": ("select", "select_rings",
-                     lambda m: _plus(m.select_rings_plain, eps=1)),
+    "select_rings": lambda plain: _plus(plain, eps=1),
+    "bgather": _float_plus,
+    "evict_and_count": _merge_plus,
 }
+# the kernels verify_kernels checks (the others only verify_rung does, at
+# step_b's inputs)
+VERIFIED = ("knn_select_rows", "knn_select", "assoc_cell", "merge_tiles",
+            "segmented_prefix_sums", "window_mins", "lm_fused",
+            "select_rings")
+
+
+def _perturb(monkeypatch, name):
+    """The kernel's wrapper replaced by its perturbed plain version."""
+    spec = kernels.KERNELS[name]
+    monkeypatch.setattr(kernels.module(name), spec.wrapper,
+                        PERTURBED[name](kernels.plain(name)))
 
 
 def test_verify_kernels_passes_on_the_plain_versions():
@@ -420,14 +440,11 @@ def test_verify_kernels_passes_on_the_plain_versions():
     assert all(e == 0.0 for e in errs.values())
 
 
-@pytest.mark.parametrize("name", sorted(PERTURBED))
+@pytest.mark.parametrize("name", sorted(VERIFIED))
 def test_verify_kernels_fails_on_a_perturbed_kernel(monkeypatch, name):
     """The kernel side replaced by its plain version plus 1e-3 (one label
     for select_rings): the check raises and names the kernel."""
-    import importlib
-    mod_name, attr, make = PERTURBED[name]
-    mod = importlib.import_module(f"aloam_tpu_torch.ops.{mod_name}")
-    monkeypatch.setattr(mod, attr, make(mod))
+    _perturb(monkeypatch, name)
     with pytest.raises(RuntimeError, match=name):
         pb.verify_kernels(torch.device("cpu"))
 
@@ -437,7 +454,7 @@ def test_seg_scan_bound_scales_with_the_summed_magnitudes():
     the result: a sum of ±1000 terms that cancels to ~0 may differ by
     f32 rounding of the terms (5e-5 here), not by 1e-2; the count channel
     is held exact; the bound cannot be read without the inputs."""
-    from aloam_tpu_torch.ops import tolerance, voxel
+    from aloam_tpu_torch.ops import voxel
     vals = torch.tensor([[[1000.0, -1000.0, 0.5, 3.0, -3.0]]] * 2)
     vals[-1] = 1.0
     heads = torch.tensor([[True, False, False, True, False]])
@@ -446,7 +463,7 @@ def test_seg_scan_bound_scales_with_the_summed_magnitudes():
     def off(eps, at=(0, 0, 2)):
         got = want.clone()
         got[at] += eps
-        return tolerance.agree("segmented_prefix_sums", got, want,
+        return kernels.agree("segmented_prefix_sums", got, want,
                                inputs=(vals, heads))
 
     assert off(5e-5)[0]                  # |p| = 0.5, Σ|x| = 2000.5
@@ -454,7 +471,7 @@ def test_seg_scan_bound_scales_with_the_summed_magnitudes():
     assert not off(5e-5, at=(0, 0, 4))[0]   # |p| = 0, Σ|x| = 6
     assert not off(1.0, at=(1, 0, 2))[0]    # the count channel
     with pytest.raises(ValueError, match="inputs"):
-        tolerance.agree("segmented_prefix_sums", want, want)
+        kernels.agree("segmented_prefix_sums", want, want)
 
 
 @pytest.fixture(scope="module")
@@ -473,22 +490,21 @@ def rung(tmp_path_factory):
 
 
 def test_verify_rung_checks_every_kernel_of_step_b(rung):
-    """On the CPU each wrapper is its plain version: all six of step_b's
+    """On the CPU each wrapper is its plain version: all eight of step_b's
     kernels are recorded at frame 1 and agree, with error 0."""
     cfg, xyz, mask = rung
     errs = pb.verify_rung(cfg, 2, xyz, mask, "cpu")
-    assert set(errs) == set(pb._STEP_KERNELS)
+    assert set(errs) == set(kernels.STEP_B) and len(errs) == 8
     assert all(e == 0.0 for e in errs.values())
 
 
-@pytest.mark.parametrize("name", ["assoc_cell", "merge_tiles"])
+@pytest.mark.parametrize("name", ["assoc_cell", "merge_tiles", "bgather",
+                                  "evict_and_count"])
 def test_verify_rung_fails_on_a_perturbed_kernel(rung, monkeypatch, name):
-    """The kernel side replaced by its plain version plus 1e-3, the table
-    merge in place too: the rung's check raises and names the kernel."""
-    import importlib
-    mod_name, attr, make = PERTURBED[name]
-    mod = importlib.import_module(f"aloam_tpu_torch.ops.{mod_name}")
-    monkeypatch.setattr(mod, attr, make(mod))
+    """The kernel side replaced by its plain version plus 1e-3, the tables
+    of the merge and of the window pass in place too: the rung's check
+    raises and names the kernel."""
+    _perturb(monkeypatch, name)
     cfg, xyz, mask = rung
     with pytest.raises(RuntimeError, match=name):
         pb.verify_rung(cfg, 2, xyz, mask, "cpu")

@@ -147,20 +147,20 @@ def test_wrapper_refuses_bad_inputs():
 
 
 def test_tolerance_holds_tables_bit_for_bit():
-    """``ops/tolerance.agree`` (the card's comparison of kernel and plain)
+    """``ops/kernels.agree`` (the card's comparison of kernel and plain)
     takes the two tables and the counts bit for bit: a table equal in
     value but not in bits (-0.0 for 0.0), or a count one off, fails."""
-    from aloam_tpu_torch.ops import tolerance
+    from aloam_tpu_torch.ops import kernels
     pts, aux, center, window, local = (_t(a) for a in _case(9, 2, "inside"))
     counts = evict_op.evict_and_count(pts, aux, center, window, local)
     want = (pts, aux, *counts)
-    assert tolerance.agree("evict_and_count", tuple(t.clone() for t in want),
+    assert kernels.agree("evict_and_count", tuple(t.clone() for t in want),
                            want) == (True, 0.0)
     signed = pts.clone()
     signed.view(-1)[0] = 0.0
     zero = signed.clone()
     zero.view(-1)[0] = -0.0
-    assert not tolerance.agree("evict_and_count", (zero, aux, *counts),
+    assert not kernels.agree("evict_and_count", (zero, aux, *counts),
                                (signed, aux, *counts))[0]
-    assert not tolerance.agree("evict_and_count",
+    assert not kernels.agree("evict_and_count",
                                (pts, aux, counts[0] + 1, counts[1]), want)[0]

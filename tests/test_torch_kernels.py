@@ -748,6 +748,28 @@ def test_wrappers_refuse_non_cuda_devices():
     assert knn_op.grid_launches == 0
 
 
+def test_kernel_table_is_complete():
+    """Every entry of ``ops/kernels.KERNELS`` resolves (module, wrapper,
+    plain twin, counter), its source exists, every ``csrc/*.cu`` but the
+    stamp and the error helpers is some entry's source, and the paths
+    name only entries, the front half's kernels among step_b's."""
+    import os
+
+    from aloam_tpu_torch.ops import _build, kernels
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name, spec in kernels.KERNELS.items():
+        mod = kernels.module(name)
+        assert callable(getattr(mod, spec.wrapper)), name
+        assert callable(getattr(mod, spec.plain)), name
+        assert isinstance(kernels.launches(name), int), name
+        assert os.path.isfile(os.path.join(repo, spec.source)), name
+        assert spec.in_place >= 0 and callable(spec.check), name
+    assert {src.name for src in _build.sources()} - {"stamp.cu", "errors.cu"} \
+        == {os.path.basename(k.source) for k in kernels.KERNELS.values()}
+    assert set(kernels.FRONT) < set(kernels.STEP_B)
+    assert set(kernels.STEP_B) | set(kernels.STEP) <= set(kernels.KERNELS)
+
+
 def test_c_signatures_match_the_sources():
     """Every kernel entry point of csrc/*.cu (``extern "C" int``) has a
     ctypes signature in _build.SIGNATURES with as many arguments, and

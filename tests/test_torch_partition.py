@@ -309,6 +309,39 @@ def test_census_helpers_match_jax(rng):
     _grid_equal(got, _grid_t(want))
 
 
+@pytest.mark.parametrize("helper", ["count_near", "count_near_b",
+                                    "invalidate_outside"])
+def test_census_helpers_are_one_window_pass(monkeypatch, helper):
+    """Each census helper is one call of ``ops/evict.evict_and_count``
+    (the window kernel on a CUDA table), with ``evict`` off for the counts
+    and on for the clear: a counting wrapper sees one call, and the
+    results (the cleared table too) equal the unwrapped helper's on a
+    copy of the table. count_near runs on one stream's (H, ·) table."""
+    from aloam_tpu_torch.ops import evict as evict_op
+    grid = _map()
+    center = torch.tensor([[0, 0, 0], [2, 2, 0], [-3, 1, 1]],
+                          dtype=torch.int32)
+    half = torch.tensor([3, 3, 2], dtype=torch.int32)
+    if helper == "count_near":
+        grid, center = gridmap.GridMap(*(t[0].clone() for t in grid)), \
+            center[0]
+    fn = getattr(gridmap, helper)
+    want = fn(gridmap.GridMap(*(t.clone() for t in grid)), center, half)
+    calls, real = [], evict_op.evict_and_count
+
+    def counted(*args):
+        calls.append(args[-1])
+        return real(*args)
+    monkeypatch.setattr(evict_op, "evict_and_count", counted)
+    got = fn(grid, center, half)
+    assert calls == [helper == "invalidate_outside"]
+    if helper == "invalidate_outside":
+        _grid_equal(got[0], want[0])
+        got, want = got[1], want[1]
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert (want > 0).all()
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_partitioned_census_sums_to_whole(n):
     """n_valid, count_near_b and invalidate_outside on every part: the
