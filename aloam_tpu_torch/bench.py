@@ -495,7 +495,7 @@ def verify_kernels(device) -> dict:
     pts = np.cumsum(rng.normal(scale=0.1, size=(r, c, 3)), axis=1)
     curv = rng.exponential(0.1, size=(r, c))
     cnt = rng.integers(c // 2, c + 1, size=r)
-    sargs, _ = _select_args(*(torch.from_numpy(a).to(device) for a in (
+    sargs = _select_args(*(torch.from_numpy(a).to(device) for a in (
         pts.astype(np.float32), curv.astype(np.float32),
         cnt.astype(np.int32))), cfg)
     consts = (cfg.n_regions, cfg.max_sharp, cfg.max_less_sharp,

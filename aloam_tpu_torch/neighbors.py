@@ -140,8 +140,12 @@ def odom_window_mins_b(sel: torch.Tensor, ref: torch.Tensor,
     Both sets are recentred on the query mean before the kernel (smaller
     coordinates round less), and invalid reference points are poisoned at
     1e9 after centring, which puts them beyond every distance gate and
-    ring window."""
-    center = sel.mean(dim=1, keepdim=True)                   # (B, 1, 3)
+    ring window. The mean is summed in fixed point (1/1024 m): an integer
+    sum does not depend on the order the card adds in, where a float
+    reduction's order follows the batch's size, so a stream's outputs do
+    not depend on the batch it is stepped in."""
+    center = ((sel * 1024.0).round().to(torch.int64).sum(dim=1, keepdim=True)
+              .to(torch.float32) / (1024.0 * sel.shape[1]))  # (B, 1, 3)
     ref_p = torch.cat(
         [torch.where(ref_mask[:, None, :], (ref - center).transpose(1, 2),
                      _POISON),

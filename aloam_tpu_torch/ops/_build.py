@@ -53,6 +53,7 @@ SIGNATURES = {
     "aloam_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I,
                           _P),
     "aloam_evict_count": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "aloam_ring_clouds": (_P,) * 14 + (_I,) * 12 + (_F, _P),
 }
 
 

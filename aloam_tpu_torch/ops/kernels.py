@@ -39,7 +39,14 @@ How far each kernel may stand from its plain version (:func:`agree`):
                          -0.0 included);
   evict_and_count        both tables bit-equal after the in-place clear and
                          the counts exact (a copy of sentinels and integer
-                         counts: no arithmetic on floats).
+                         counts: no arithmetic on floats);
+  ring_clouds            every cloud, mask and drop count bit-equal but
+                         the less-flat means, |k - p| <= 1e-5 + 1e-6 |p|:
+                         each side rounds a voxel's double-precision sum
+                         once, summed in another order. A voxel lies on
+                         one side of every axis (voxels are anchored at the
+                         origin), so |p| is the mean of its magnitudes:
+                         the seg scan's relative term, over the count.
 
 A new kernel is its ops module, its ``csrc/*.cu``, one line of
 ``_build.SIGNATURES`` and one entry here.
@@ -84,6 +91,16 @@ def _seg_scan(got, want, kind, inputs):
     ok = bool((d <= 1e-5 + 1e-6 * mags).all()) \
         and torch.equal(got[-1], want[-1])
     return ok, d.max().item()
+
+
+def _rings(got, want, kind, inputs):
+    lf = 6                                      # the less-flat means
+    same, _ = _bits(got[:lf] + got[lf + 1:], want[:lf] + want[lf + 1:],
+                    kind, inputs)
+    d = absdiff(got[lf], want[lf])
+    ok = same and bool((d <= 1e-5 + 1e-6 * want[lf].abs()).all())
+    err = d.max().item() if d.numel() else 0.0
+    return ok, err if same else float("inf")
 
 
 def _exact(got, want, kind, inputs):
@@ -161,15 +178,21 @@ KERNELS = {
     "evict_and_count": Kernel("evict", "evict_and_count",
                               "evict_and_count_plain", _CSRC + "evict.cu",
                               None, _bits, in_place=2),
+    # the feature stage's per-ring clouds (features.extract_features_b in
+    # the JAX package leaves the compaction and voxel downsample to XLA)
+    "ring_clouds": Kernel("rings", "ring_clouds", "ring_clouds_plain",
+                          _CSRC + "rings.cu", None, _rings),
 }
 
 # the kernels each path launches: the front half (pipeline.front_step_b),
 # the batched step (step_b) and the single-stream step (step); the
-# distortion path launches lm_fused_s besides
-FRONT = ("select_rings", "segmented_prefix_sums", "window_mins", "lm_fused",
-         "bgather")
-STEP_B = FRONT + ("assoc_cell", "merge_tiles", "evict_and_count")
-STEP = FRONT + ("merge_tiles", "knn_select", "evict_and_count")
+# distortion path launches lm_fused_s besides. The seg scan is mapping's
+# (the stack downsample and the insert)
+FRONT = ("select_rings", "ring_clouds", "window_mins", "lm_fused", "bgather")
+STEP_B = FRONT + ("segmented_prefix_sums", "assoc_cell", "merge_tiles",
+                  "evict_and_count")
+STEP = FRONT + ("segmented_prefix_sums", "merge_tiles", "knn_select",
+                "evict_and_count")
 
 
 def module(name: str):

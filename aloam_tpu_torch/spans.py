@@ -36,7 +36,8 @@ on the host. Off by default; :func:`enable` / :func:`disable` or the
 The spans and what reads them: ``register``, ``features``, ``odometry``,
 ``mapping`` and ``outputs`` tile a frame (``outputs`` twice in a compiled
 step: the step's output assembly, then the body's per-frame copies and
-the state's copy); ``odom.assoc`` / ``odom.lm`` (each round),
+the state's copy); ``features.select`` (the selection walk and its
+inputs), ``features.rings`` (the per-ring clouds); ``odom.assoc`` / ``odom.lm`` (each round),
 ``odom.handoff``; ``map.evict``, ``map.downsample``, ``map.insert``;
 ``map.cache`` and ``map.assoc`` (each round) on the batched mapping,
 ``map.knn`` and ``map.fit`` (each round, corner then surf) on the

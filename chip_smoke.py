@@ -19,9 +19,10 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    map_query_chunk 2048), and the single-stream bench scene (seed 42,
    10 m/s, padded to ``PRESETS["HDL-64"]``), cached under
    ``.bench_cache/``;
-4. kernels: each of step_b's eight kernels (the six that replace a
-   ``pallas_call``, the row gather, ``bgather``, and the map window's
-   evict and census, ``evict_and_count``) against its plain
+4. kernels: each of step_b's nine kernels (the six that replace a
+   ``pallas_call``, the row gather, ``bgather``, the map window's
+   evict and census, ``evict_and_count``, and the feature stage's
+   per-ring clouds, ``ring_clouds``) against its plain
    PyTorch version on the card, on every distinct input shape the main path gave
    it in frame 1 of ``step_b``, with the stated tolerance, both timed
    with CUDA events (the kernel back to back, its wrapper's host cost
@@ -53,7 +54,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    graph: stamps rise with their slot and, on the host clock, lie between
    host readings around the launches (``check_stamp``); the row gather
    (``ops/gather.bgather``, ``csrc/gather.cu``) bit-equal to
-   ``flat[gidx]`` at the ``hdl64-fleet-b32`` frame's five gather shapes
+   ``flat[gidx]`` at the ``hdl64-fleet-b32`` frame's four gather shapes
    and on small cases, timed beside its byte bound and the library's
    indexing, and an index past either end of a stream's rows ending a
    child process with a CUDA error (``check_gather``); the map window's
@@ -62,14 +63,21 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    and off, on tables planted with cells out of the window at the
    ``hdl64-fleet-b32`` frame's shapes, at B = 1 and on small tables that
    take the 8- and 4-byte vectors, and timed beside its byte bound at
-   four fillings of the fleet's tables (``check_evict``). A kernel
+   four fillings of the fleet's tables (``check_evict``); the feature
+   stage's per-ring clouds (``ops/rings.ring_clouds``, ``csrc/rings.cu``)
+   against its plain version, copies, masks and drops bit-equal and the
+   less-flat means within their bound, two launches bit-equal, on ring
+   rows with empty, short, full, one-voxel and a-voxel-a-point rings and
+   labels past a ring's slots, C = 1000 to 4096, then timed beside its
+   byte bound at the ``hdl64-fleet-b32`` frame's rows and one stream's
+   (``check_rings``). A kernel
    that updates the tables in place gets a fresh clone of them for every
    call, timed calls included;
 5. front: ``pipeline.front_step_b`` over the first 5 frames with the
    kernels (its five launch counters must rise, and every odometry search
    must declare ``ring_seg`` > 0) and with the plain versions; per-frame
    odometry poses must agree;
-6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its eight
+6. step: ``pipeline.step_b`` over the 8 frames with the kernels (its nine
    launch counters must rise, ``ring_seg`` > 0 as in phase 5) and with
    the plain versions; map poses must agree (tightly unless a gate
    flipped); a third kernel run reads each stage's device span from the
@@ -81,7 +89,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    the same); scans/s, peak device
    memory and the odometry and mapped ATE against the ground truth (must
    be < 0.5 m);
-7. single-stream kernels: each of the single-stream step's eight kernels
+7. single-stream kernels: each of the single-stream step's nine kernels
    against its plain version, timed and bounded as in phase 4, at the
    inputs frame 1 of the single-stream step gave them (``knn_select``:
    the table entry, ``ops/knn.knn_grid``, which ``gridmap.knn`` calls),
@@ -93,7 +101,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    candidates, equal distances, negative coordinates, queries on cell
    boundaries, ±1e5 m, Q = 1 and 1001; Bk 32 and 48);
 8. single: ``pipeline.step`` over the single-stream scene's 8 frames at
-   ``PRESETS["HDL-64"]`` with the kernels (its eight launch counters, the
+   ``PRESETS["HDL-64"]`` with the kernels (its nine launch counters, the
    table entry's among them, must rise; ``ring_seg`` > 0) and with the
    plain versions;
    map poses as in phase 6; ms/scan, peak device memory, a staged kernel
@@ -127,7 +135,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
 11. parallel: ``aloam_tpu_torch.parallel`` over ``torch.distributed``.
    (a) One NCCL rank, a (1, 1) mesh, through the compiled entry points:
    ``batched_step_fn`` over phase 6's 16 streams and 8 frames, captured
-   once (its body launching each of step_b's eight kernels as one eager
+   once (its body launching each of step_b's nine kernels as one eager
    frame does) and replayed 8 times, every output of every frame and the
    final tables bit-equal to phase 6's eager kernel run; ``step_b`` with
    the rank's ``TableShard`` of the NCCL group of one through a
@@ -148,7 +156,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    as a (1, 2) mesh, each holding half of every table of phase 6's 16
    streams (the partition assert of ``parallel.dryrun.check_partition``
    before and after), step the 8 frames with the kernels (launch counters
-   from 0, each of step_b's eight must rise); both ranks' poses and
+   from 0, each of step_b's nine must rise); both ranks' poses and
    metrics equal each other and phase 6's bit for bit, and rank 0 steps
    the same frames with the whole tables (``pipeline.step_b``): the
    tables gathered by ``gather_tables`` equal them bit for bit. Rank 0's
@@ -169,7 +177,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    (b) ``parallel.batched_step_jit`` over phase 6's 16 streams and 8
    frames: the outputs of every frame, kept on the card until the end,
    and the final tables bit-equal to phase 6's eager kernel run; one
-   capture, whose body launched each of step_b's eight kernels as often as
+   capture, whose body launched each of step_b's nine kernels as often as
    one eager frame does, and 8 replays. (c) ``pipeline.make_step_fn`` over
    phase 8's frames, bit-equal to phase 8, then 4 frames at
    ``mapping_skip_frame`` 2 (two graphs, one a gate branch) bit-equal to
@@ -181,7 +189,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    the capture. Its run time is printed;
 13. bench: first the bench's preset rung in this process, ``step_b`` at
    ``PRESETS["HDL-64"]``'s caps over phase 3's streams, its launches
-   counted from 0 (all eight kernels must launch), its kernels held against
+   counted from 0 (all nine kernels must launch), its kernels held against
    their plain versions at its frame-1 inputs as in phase 4, and its ATE
    as in phase 6; then ``python -m aloam_tpu_torch.pregen_streams`` and
    ``python -m aloam_tpu_torch.bench`` as child processes, each with a
@@ -202,7 +210,7 @@ of JAX or of the JAX package. Phases, each printing its own lines:
    ``batched_step_jit`` over frames 0-19 bit-equal to the eager ``step``
    and ``step_b``; (d) ``make_step_fn`` and (e) ``batched_step_jit`` at
    B = 1 over all 500 frames, each path's launch counters set to 0 just
-   before and read just after (each of its eight must rise), held to
+   before and read just after (each of its nine must rise), held to
    tests/test_long_drift.py's gates (``drift.gates``: map_solved >= 495,
    drift < 3 %, ATE < 10 m, every pose finite, the first 200 frames'
    drift within 1.25 x the f64 oracle's, or 1.25 x JAX's own ratio where
@@ -245,7 +253,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (KNN_CASES, MERGE_CASES,  # noqa: E402
                            SELECT_CASES, evict_table, knn_case, merge_case,
-                           queries_near, segmented_reference, select_case)
+                           queries_near, ring_labels, ring_rows,
+                           segmented_reference, select_case)
 
 # the kernel table: each kernel's wrapper, plain twin, counter, in-place
 # arguments, tolerance and source, and the kernels each path launches
@@ -1197,14 +1206,13 @@ def gather_shapes(device):
     """The row gathers of a ``hdl64-fleet-b32`` frame (B = 32, n_raw
     131072, 64 rings of 2560 slots, benchmark/configs/hdl64.json), with
     indices of the same pattern as the main path's: (tag, x, idx). The
-    registration's stable ring sort and its ring windows, the features'
-    per-ring class sort over the 2048 rings, odometry's plane search over
-    the strided xyz view of a 4-wide cloud (int32), the knn cache's
-    576-byte surf buckets: as ``gridmap.knn_cache_b`` builds it, the
-    2x2x2 bucket block (``gridmap._block``) of each of map_cell_cap 1024
-    distinct occupied cells in the cache's key order, here a quarter of
-    a 32 x 32 x 4 box of cells a stream, then ASSOC_PAD zero cells, so
-    that neighbouring cells share buckets as on the map."""
+    registration's stable ring sort and its ring windows, odometry's
+    plane search over the strided xyz view of a 4-wide cloud (int32), the
+    knn cache's 576-byte surf buckets: as ``gridmap.knn_cache_b`` builds
+    it, the 2x2x2 bucket block (``gridmap._block``) of each of
+    map_cell_cap 1024 distinct occupied cells in the cache's key order,
+    here a quarter of a 32 x 32 x 4 box of cells a stream, then ASSOC_PAD
+    zero cells, so that neighbouring cells share buckets as on the map."""
     import torch
 
     from aloam_tpu_torch.ops.gridmap import ASSOC_PAD, _block
@@ -1218,8 +1226,6 @@ def gather_shapes(device):
                                       generator=g), dim=1)[0]
     src = (starts[..., None] + torch.arange(cap, device=device)) \
         .clamp_max(n - 1).reshape(bsz, -1)
-    cls = torch.randint(0, 4, (bsz * rings, cap), device=device, generator=g)
-    by_cls = torch.sort(cls, dim=1, stable=True)[1]
     last = torch.randn((bsz, 40960, 4), device=device, generator=g)
     table = torch.randn((bsz, 16384, 3 * 48), device=device, generator=g)
     box = torch.stack(torch.meshgrid(
@@ -1235,9 +1241,6 @@ def gather_shapes(device):
     hh, _ = _block(cells.to(torch.int32), table.shape[1])
     return [("register.fused", fused, order),
             ("register.grid", fused, src),
-            ("features.sorted_f",
-             torch.randn((bsz * rings, cap, 4), device=device, generator=g),
-             by_cls),
             ("odometry.plane_xyz", last[..., :3],
              torch.randint(0, 40960, (bsz, 1536), device=device, generator=g,
                            dtype=torch.int32)),
@@ -1508,6 +1511,112 @@ def check_evict(device, card):
             f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB; "
             f"{every:.4f} ms at 12 bytes a slot) ({card})")
         del tables
+
+
+def ring_inputs(device, seed, streams, rings, c, labels="select",
+                specials=True, lf_ring=640, apart=False):
+    """``ops/rings.ring_clouds``' arguments for ``_torch_scenes.ring_rows``
+    (B = ``streams`` of ``rings`` rings of ``c`` slots), as
+    ``extract_features_b`` makes them at a config of those sizes with
+    ``lf_ring`` less-flat slots a ring: the points as views of one 4-wide
+    grid, or handed apart (``apart``: the wrapper copies them), and the
+    labels of ``select_rings`` on the rings' curvature or of
+    ``_torch_scenes.ring_labels``."""
+    import torch
+
+    from aloam_tpu_torch.config import AloamConfig
+    from aloam_tpu_torch.frontend.features import _select_labels
+    from aloam_tpu_torch.frontend.registration import curvature
+    g = np.random.default_rng(seed)
+    xyz, ins, cnt = ring_rows(g, streams, rings, c, specials=specials)
+    grid = torch.from_numpy(np.concatenate([xyz, ins[..., None]],
+                                           -1)).to(device)
+    x, i = grid[..., :3], grid[..., 3]
+    if apart:
+        x, i = x.contiguous(), i.contiguous()
+    cnt = torch.from_numpy(cnt).to(device)
+    cfg = AloamConfig(scan_lines=rings, ring_cap=c,
+                      less_flat_cap=rings * lf_ring)
+    if labels == "select":
+        label = _select_labels(x, curvature(x, cfg.edge_margin), cnt, cfg)
+    else:
+        label = torch.from_numpy(ring_labels(g, streams * rings,
+                                             c)).to(device)
+    ring_caps = (cfg.n_regions * cfg.max_sharp,
+                 cfg.n_regions * cfg.max_less_sharp,
+                 cfg.n_regions * cfg.max_flat, min(c, lf_ring))
+    caps = (cfg.sharp_cap, cfg.less_sharp_cap, cfg.flat_cap,
+            cfg.less_flat_cap)
+    return (x, i, label, cnt, streams, cfg.n_regions, ring_caps, caps,
+            cfg.less_flat_leaf)
+
+
+def check_rings(device, card):
+    """The feature stage's per-ring clouds (``ops/rings.ring_clouds``,
+    ``csrc/rings.cu``) against its plain version (``kernels.agree``: every
+    cloud, mask and drop count bit-equal, the less-flat means within
+    1e-5 + 1e-6 |p|), and a second launch bit-equal to the first, on
+    ``_torch_scenes.ring_rows`` (street-canyon rings and, in every stream,
+    an empty ring, 16 points, 17, a full ring, C/8 points in one voxel and
+    C/2 a voxel each) with the selection's labels and with
+    ``ring_labels``' (more picks of a class than a ring's slots, labels
+    the walk never gives): B = 1 x 16 rings of 2048 (VLP-16), B = 3 x 8 of
+    2560 (HDL-64), B = 2 x 4 of 4096 (the kernel's most), 1000 slots (not
+    a multiple of 16), one ring, every slot a less-flat slot (as
+    tools/hdl32_occupancy asks) and the points handed apart. Then timed,
+    back to back and queued, beside its byte bound and the plain version,
+    at the ``hdl64-fleet-b32`` frame's rows (B = 32 x 64 of 2560) and one
+    stream's (1 x 16 of 2048, 1 x 64 of 2560), street rings only."""
+    import torch
+
+    from aloam_tpu_torch.ops import rings
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    cases = (("B=1 x 16 of 2048", (1, 16, 2048), {}),
+             ("B=3 x 8 of 2560", (3, 8, 2560), {}),
+             ("B=3 x 8 of 2560, ring_labels", (3, 8, 2560),
+              dict(labels="random")),
+             ("B=2 x 4 of 4096", (2, 4, 4096), {}),
+             ("B=2 x 8 of 1000", (2, 8, 1000), {}),
+             ("one ring of 2560", (1, 1, 2560), dict(specials=False)),
+             ("B=2 x 8 of 2048, every slot less-flat", (2, 8, 2048),
+              dict(lf_ring=2048)),
+             ("B=2 x 8 of 2560, points apart", (2, 8, 2560),
+              dict(apart=True)))
+    for k, (tag, shape, kw) in enumerate(cases):
+        args = ring_inputs(device, 230 + k, *shape, **kw)
+        got = rings.ring_clouds(*args)
+        again = rings.ring_clouds(*args)
+        want = rings.ring_clouds_plain(*args)
+        torch.cuda.synchronize()
+        err = compare("ring_clouds", got, want)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)):
+            fail(f"[rings] {tag}: two launches differ")
+        say(f"[rings] {tag}: {int(got[1].sum())} sharp, "
+            f"{int(got[3].sum())} less-sharp, {int(got[5].sum())} flat, "
+            f"{int(got[7].sum())} less-flat voxels, {int(got[10].sum())} "
+            f"dropped; copies, masks and drops bit-equal, means max abs err "
+            f"{err:.3g}; two launches bit-equal ({card})")
+
+    for tag, shape in (("hdl64-fleet-b32 frame", (32, 64, 2560)),
+                       ("one VLP-16 stream", (1, 16, 2048)),
+                       ("one HDL-64 stream", (1, 64, 2560))):
+        args = ring_inputs(device, 240, *shape, specials=False)
+        got = rings.ring_clouds(*args)
+        err = compare("ring_clouds", got, rings.ring_clouds_plain(*args))
+        nbytes, _ = kernel_work("ring_clouds", args, {}, got)
+        bound_ms, bound_by = bound_of(nbytes, 0)
+        ms = cuda_ms(lambda: rings.ring_clouds(*args), 20)
+        device_ms = cuda_ms(lambda: rings.ring_clouds(*args), 20,
+                            queued=True)
+        plain_ms = cuda_ms(lambda: rings.ring_clouds_plain(*args), 5)
+        say(f"[rings] {tag}: rows ({shape[0] * shape[1]}, {shape[2]}), "
+            f"{int(got[7].sum())} less-flat voxels, max abs err {err:.3g}; "
+            f"kernel {ms:.4f} ms (device {device_ms:.4f}) plain "
+            f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{nbytes / 1e6:.1f} MB) ({card})")
 
 
 def check_insert_twin(mods, device, card):
@@ -3074,7 +3183,7 @@ def check_preset_rung(pipeline, mods, cfg, frames, gt, device, results,
     ``step_b`` at ``PRESETS["HDL-64"]``'s caps (the bench's
     map_query_chunk) over phase 3's B = 16 streams, padded to the preset's
     n_raw. Its launches are counted from 0 over the frames (each of
-    step_b's eight kernels must launch), its kernels held against their
+    step_b's nine kernels must launch), its kernels held against their
     plain versions at the inputs its frame 1 gives them, as phase 4 holds
     them at the bench config, and its ATE as phase 6's. Returns the
     launches."""
@@ -3344,6 +3453,7 @@ def main() -> None:
     check_stamp(device, card)
     check_gather(device, card)
     check_evict(device, card)
+    check_rings(device, card)
     run_front(pipeline, mods, cfg, frames[:N_FRONT], device, card)
     launches, st_b, outs_b, ms_b, busy_b = run_step(pipeline, mods, cfg, frames, gt,
                                             device, card)

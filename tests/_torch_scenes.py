@@ -311,3 +311,69 @@ def evict_table(rng, center, window, local, h: int, bk: int,
     pts = np.where(live[:, :, None], rng.uniform(
         -500, 500, (bsz, h, 3, bk)), 1e9).astype(np.float32)
     return pts.reshape(bsz, h, 3 * bk), aux.reshape(bsz, h, 5 * bk)
+
+
+# the special rings of ring_rows, in the order they take a stream's rings
+RING_SPECIALS = ("empty", "cnt16", "cnt17", "full", "one_voxel", "spread")
+
+
+def ring_rows(rng, streams: int, rings: int, c: int, leaf: float = 0.2,
+              specials: bool = True):
+    """Ring rows as registration leaves them, for the feature stage:
+    (xyz (B·R, C, 3) f32, intensity (B·R, C) f32, cnt (B·R,) i32), slots
+    past cnt zero. Each ring sweeps a street canyon (walls 8 m either
+    side, ground 1.73 m below, returns past 80 m dropped) at an elevation
+    from +2 to -24.9 degrees, 1 cm of noise, its count drawn from [C/2,
+    C]; intensity is ring + 0.1 · the slot's share of the sweep. With
+    ``specials`` each stream's rings begin, from ring b mod R on, with
+    RING_SPECIALS: an empty ring, 16 points (no regions), 17 (the least
+    with regions), a full ring, C/8 points in one voxel of ``leaf`` near
+    the origin, and C/2 points a leaf and a half apart (a voxel each)."""
+    xyz = np.zeros((streams, rings, c, 3), np.float32)
+    ins = np.zeros((streams, rings, c), np.float32)
+    cnt = rng.integers(c // 2, c + 1, (streams, rings))
+    for b in range(streams):
+        kinds = {(b + k) % rings: kind
+                 for k, kind in enumerate(RING_SPECIALS[:rings])} \
+            if specials else {}
+        for r in range(rings):
+            kind = kinds.get(r, "street")
+            n = dict(empty=0, cnt16=16, cnt17=17, full=c, one_voxel=c // 8,
+                     spread=c // 2).get(kind, int(cnt[b, r]))
+            cnt[b, r] = n
+            j = np.arange(n)
+            if kind == "one_voxel":
+                pts = (np.array([2, 1, 0]) + 0.25
+                       + 0.5 * rng.random((n, 3))) * leaf
+            elif kind == "spread":
+                pts = np.stack([5.0 + 1.5 * leaf * j, 3.0 + 0 * j,
+                                -1.0 + 0 * j], -1)
+            else:
+                el = np.deg2rad(2.0 - 26.9 * r / max(rings - 1, 1))
+                th = 2 * np.pi * (j + rng.random()) / max(n, 1)
+                d = np.stack([np.cos(th) * np.cos(el),
+                              np.sin(th) * np.cos(el),
+                              np.full(n, np.sin(el))], -1)
+                t = np.full(n, 80.0)
+                side = np.abs(d[:, 1]) > 1e-6
+                t[side] = np.minimum(t[side], 8.0 / np.abs(d[side, 1]))
+                if el < 0:
+                    t = np.minimum(t, 1.73 / -np.sin(el))
+                pts = d * t[:, None] + rng.normal(0, 0.01, (n, 3))
+            xyz[b, r, :n] = pts
+            ins[b, r, :n] = r + 0.1 * j / max(n, 1)
+    return (xyz.reshape(streams * rings, c, 3), ins.reshape(-1, c),
+            cnt.reshape(-1).astype(np.int32))
+
+
+def ring_labels(rng, rows: int, c: int):
+    """Labels as the selection leaves them, and past it: (R', C) i32 with
+    2, 1 and -1 at a few percent each, more than a ring's slots of each in
+    some rows, and labels the walk never gives (5, -3: a rest class and a
+    less-flat one)."""
+    u = rng.random((rows, c))
+    label = np.select([u < 0.01, u < 0.06, u < 0.09, u < 0.095, u < 0.1],
+                      [2, 1, -1, 5, -3], 0)
+    dense = rng.random(rows) < 0.25
+    label[dense] = rng.choice([2, 1, -1, 0], (int(dense.sum()), c))
+    return label.astype(np.int32)

@@ -415,6 +415,8 @@ PERTURBED = {
     "select_rings": lambda plain: _plus(plain, eps=1),
     "bgather": _float_plus,
     "evict_and_count": _merge_plus,
+    # the less-flat means
+    "ring_clouds": lambda plain: _plus(plain, at=6),
 }
 # the kernels verify_kernels checks (the others only verify_rung does, at
 # step_b's inputs)
@@ -490,16 +492,16 @@ def rung(tmp_path_factory):
 
 
 def test_verify_rung_checks_every_kernel_of_step_b(rung):
-    """On the CPU each wrapper is its plain version: all eight of step_b's
+    """On the CPU each wrapper is its plain version: all nine of step_b's
     kernels are recorded at frame 1 and agree, with error 0."""
     cfg, xyz, mask = rung
     errs = pb.verify_rung(cfg, 2, xyz, mask, "cpu")
-    assert set(errs) == set(kernels.STEP_B) and len(errs) == 8
+    assert set(errs) == set(kernels.STEP_B) and len(errs) == 9
     assert all(e == 0.0 for e in errs.values())
 
 
 @pytest.mark.parametrize("name", ["assoc_cell", "merge_tiles", "bgather",
-                                  "evict_and_count"])
+                                  "evict_and_count", "ring_clouds"])
 def test_verify_rung_fails_on_a_perturbed_kernel(rung, monkeypatch, name):
     """The kernel side replaced by its plain version plus 1e-3, the tables
     of the merge and of the window pass in place too: the rung's check

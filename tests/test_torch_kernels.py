@@ -39,6 +39,7 @@ from aloam_tpu_torch.ops import insert as insert_op
 from aloam_tpu_torch.ops import knn as knn_op
 from aloam_tpu_torch.ops import lm as lm_op
 from aloam_tpu_torch.ops import odom as odom_op
+from aloam_tpu_torch.ops import rings as rings_op
 from aloam_tpu_torch.ops import select as select_op
 from aloam_tpu_torch.ops import voxel as seg_op
 from _torch_scenes import (SELECT_CASES, queries_near, segmented_reference,
@@ -86,7 +87,7 @@ def test_select_rings_matches_jax(seed):
     """Labels exact against the JAX XLA walk (features._select_rings) and
     the Pallas kernel in interpret mode."""
     pts, curv, cnt = _ring_rows(np.random.default_rng(seed))
-    label_t, in_t = features._select_labels(_t(pts), _t(curv), _t(cnt), CFG)
+    label_t = features._select_labels(_t(pts), _t(curv), _t(cnt), CFG)
 
     label_x, _, _ = jfeat._select_rings(jnp.asarray(pts), jnp.asarray(curv),
                                         jnp.asarray(cnt), JCFG)
@@ -109,11 +110,11 @@ def test_select_rings_matches_jax(seed):
                              interpret=True)
     np.testing.assert_array_equal(label_t.numpy(), np.asarray(label_p))
 
-    args, in_any = features._select_args(_t(pts), _t(curv), _t(cnt), CFG)
+    args = features._select_args(_t(pts), _t(curv), _t(cnt), CFG)
     np.testing.assert_array_equal(args[1].numpy(), bcum.astype(np.int32))
     np.testing.assert_array_equal(args[2].numpy(), np.asarray(spep))
     assert (label_t.numpy() == 2).sum() > 0 and (label_t.numpy() == -1).any()
-    assert in_t.dtype == torch.bool
+    assert label_t.dtype == torch.int32
 
 
 def _select_all(curv, bcum, spep, cnt, tr=8):
@@ -741,8 +742,14 @@ def test_wrappers_refuse_non_cuda_devices():
     with pytest.raises(ValueError):
         gather_op.bgather(torch.empty(2, 50, 4),
                           torch.empty(2, 7, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError):
+        rings_op.ring_clouds(torch.empty(8, 256, 3, **meta),
+                             torch.empty(8, 256, **meta),
+                             torch.empty(8, 256, **i32),
+                             torch.empty(8, **i32), 1, 6, (12, 120, 24, 64),
+                             (96, 960, 192, 512), 0.2)
     assert seg_op.launches == select_op.launches == 0
-    assert gather_op.launches == 0
+    assert gather_op.launches == rings_op.launches == 0
     assert odom_op.launches == lm_op.launches == 0
     assert assoc_op.launches == insert_op.launches == knn_op.launches == 0
     assert knn_op.grid_launches == 0
@@ -801,7 +808,8 @@ def test_build_key_follows_sources(tmp_path, monkeypatch):
     names = [s.name for s in _build.sources()]
     assert names == sorted(["assoc.cu", "errors.cu", "evict.cu", "gather.cu",
                             "insert.cu", "knn.cu", "lm.cu", "odom_window.cu",
-                            "seg_scan.cu", "select.cu", "stamp.cu"])
+                            "rings.cu", "seg_scan.cu", "select.cu",
+                            "stamp.cu"])
     before = _build.library_path()
     assert before == _build.library_path()
     with open(csrc / "lm.cu", "a") as fh:

@@ -139,6 +139,10 @@ def test_span_tables_tile_and_nest(runs, path):
                 assert p["start_ns"] <= r["start_ns"] <= r["end_ns"] \
                     <= p["end_ns"], r["name"]
         parents = {r["name"]: r["parent"] for r in dev}
+        assert {n for n, p in parents.items() if p == "features"} == \
+            {"features.select", "features.rings"}
+        assert _count(dev, "features.select") \
+            == _count(dev, "features.rings") == 1
         assert {n for n, p in parents.items() if p == "odometry"} == \
             {"odom.assoc", "odom.lm", "odom.handoff"}
         assert _count(dev, "odom.assoc") == _count(dev, "odom.lm") \
